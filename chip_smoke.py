@@ -4,23 +4,39 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the fused DenoisingBlock kernel from ``csrc/`` with nvcc.
-3. Holds the kernel against its plain PyTorch version on the card at every
+2. Builds both DenoisingBlock kernels from ``csrc/`` with nvcc, in parallel:
+   kernel 1 (NHWC) and kernel 2 (2x2 even-packed).
+3. Holds kernel 1 against its plain PyTorch version on the card at every
    block shape of an RDUNet-32 forward on 8 x 256^2 images, on a ragged shape
    and on a constant input (border case), in f32 (TF32 off) and bf16.
-4. Serves a random-weight RDUNet-32 (seeded, saved as a reference-layout
+4. Holds kernel 2 against its plain version at the packed shapes of the
+   RDUNet-32 blocks at c <= 128, a ragged and a border case, f32 and bf16,
+   and, unpacked, against kernel 1 (its contract).
+5. Serves a random-weight RDUNet-32 (seeded, saved as a reference-layout
    .pth) through the port's BatchingDenoiseService over HTTP, in bf16 and in
    f32: 8 concurrent raw 256x256x3 requests, one PNG request and /healthz
    each.  Checks the responses, that every dispatched batch launched the
    kernel 14 times, and that the served f32 output matches the plain-version
    forward on the CPU.
-5. Times each block shape (kernel, plain version, bound) and the forward.
+6. Times each block shape (kernel, plain version, bound) and the forward.
+7. The differentiable block: ``fused_block_trainable`` through kernel 1 and
+   kernel 2 at two RDUNet-32 block shapes, f32: loss and every gradient
+   against autograd through the eager block, one launch per forward, none in
+   the backward.
+8. Trains: ``SupervisedTrainer(engine="pallas")`` on RDUNet-32, 8 x 3 x 256^2
+   super-batches, accumulation 4, AdamW + StepLR + clip 1.0, 3 steps in f32
+   and in bf16: 56 kernel launches per step, finite losses, and one f32 step
+   against the same step on ``engine="xla"`` (see ``compare_with_xla``).
+   Times a step on each engine
+   and splits a "pallas" step into forward blocks, glue, backward recompute,
+   the rest of the backward, and the optimizer.
 
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
 failure, and when CUDA or the port's package is missing.
 """
 
+import concurrent.futures
 import io
 import json
 import os
@@ -39,6 +55,18 @@ SLICE_SHAPES = [((8, 32, 256, 256), 4), ((8, 64, 128, 128), 4),
                 ((8, 128, 64, 64), 4), ((8, 256, 32, 32), 2)]
 RAGGED_SHAPE = (2, 64, 37, 45)
 BORDER_SHAPE = (1, 32, 24, 24)
+# Kernel 2: the unpacked shapes of the RDUNet-32 blocks at c <= 128 (packed:
+# (8, 128, 128, 128), (8, 256, 64, 64), (8, 512, 32, 32)), a ragged one with
+# even sides, and the border case.
+PACKED_SHAPES = [((8, 32, 256, 256), 4), ((8, 64, 128, 128), 4), ((8, 128, 64, 64), 4)]
+PACKED_RAGGED_SHAPE = (2, 64, 38, 46)
+TRAINABLE_SHAPES = [(8, 32, 256, 256), (8, 64, 128, 128)]
+GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-5, 1e-5
+# Training: RDUNet-32 on 256^2 patches (data/datasets.py:26), super-batch 8
+# (train/presets.py:39), accumulation 4 (train/supervised.py:113), sigma 25.
+TRAIN_BATCH, ACCUMULATION, TRAIN_STEPS = 8, 4, 3
+SIGMA = 25 / 127.5
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-6  # "pallas" vs "xla" params after one f32 step
 F32_TOL = 1e-4          # atol and rtol: only the summation order differs
 BF16_REL_TOL = 2e-2     # max |kernel_bf16 - plain_f32| <= this * max |plain_f32|
 SERVED_F32_TOL = 2e-4   # served f32 forward vs the plain forward on the CPU
@@ -298,6 +326,266 @@ def time_forward(torch, ck):
     return out
 
 
+def build_kernels():
+    """Build both kernels' libraries at once (one nvcc each)."""
+    from vub_image_denoising_tpu_torch.ops import cuda_build
+    from vub_image_denoising_tpu_torch.ops.fused_block import _library, _packed_library
+
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(_library), pool.submit(_packed_library)]:
+            fut.result()
+    print(f"build fused_block.cu + fused_block_packed.cu: {time.monotonic() - t0:.1f} s wall "
+          f"(nvcc {cuda_build.build_seconds['fused_block']:.1f} s and "
+          f"{cuda_build.build_seconds['fused_block_packed']:.1f} s)", flush=True)
+
+
+def check_packed_kernel(torch, device):
+    """Kernel 2 vs its plain version and, unpacked, vs kernel 1; per-shape records."""
+    from vub_image_denoising_tpu_torch.ops.fused_block import (
+        fused_denoising_block, fused_denoising_block_packed, fused_denoising_block_packed_plain,
+        kernel_weights_from_packed, pack_block_params_packed)
+    from vub_image_denoising_tpu_torch.ops.packing import pack2x2, unpack2x2
+
+    records = []
+    cases = [(s, "slice") for s, _ in PACKED_SHAPES] + [(PACKED_RAGGED_SHAPE, "ragged"),
+                                                         (BORDER_SHAPE, "border")]
+    for shape, kind in cases:
+        n, c, h, w = shape
+        params = block_params(torch, c, seed=c, device=device)
+        pq = pack_block_params_packed(params)
+        gen = torch.Generator(device=device).manual_seed(1)
+        x32 = (torch.ones(shape, device=device) if kind == "border"
+               else torch.randn(shape, generator=gen, device=device))
+        x32 = x32.contiguous(memory_format=torch.channels_last)
+        ref32 = fused_denoising_block_packed_plain(pack2x2(x32), pq)
+        scale = ref32.abs().max().item()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            xq = pack2x2(x32.to(dtype))
+            kw = kernel_weights_from_packed(pq, dtype)
+            yq = fused_denoising_block_packed(xq, pq, kw)
+            torch.cuda.synchronize()
+            err_same = (yq.float() - fused_denoising_block_packed_plain(xq, pq).float()).abs().max().item()
+            if dtype == torch.float32:
+                ok = torch.allclose(yq, ref32, atol=F32_TOL, rtol=F32_TOL)
+                one = fused_denoising_block(x32, params)
+                err_ref = (unpack2x2(yq) - one).abs().max().item()
+                ok = ok and torch.allclose(unpack2x2(yq), one, atol=F32_TOL, rtol=F32_TOL)
+                tol = f"atol=rtol={F32_TOL}; unpacked vs kernel 1"
+            else:
+                err_ref = (yq.float() - ref32).abs().max().item()
+                ok = err_ref <= BF16_REL_TOL * scale
+                tol = f"<= {BF16_REL_TOL}*max|y| = {BF16_REL_TOL * scale:.4g} vs plain f32"
+            print(f"check packed {kind} {shape} {name}: max_abs_err vs plain({name}) "
+                  f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}) -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not bool(torch.isfinite(yq.float()).all()) or not ok:
+                fail(f"kernel 2 disagrees with its plain version at {shape} {name}")
+            rec = {"shape": shape, "kind": kind, "dtype": name, "max_abs_err": err_same}
+            if kind == "slice":
+                iters = 5 if c == 32 else 10
+                rec["ms"] = cuda_ms(torch, lambda: fused_denoising_block_packed(xq, pq, kw), iters)
+                rec["plain_ms"] = cuda_ms(
+                    torch, lambda: fused_denoising_block_packed_plain(xq, pq), iters)
+                rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, xq.element_size())
+                print(f"time packed {shape} {name}: kernel {rec['ms']:.4f} ms, plain "
+                      f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                      f"({rec['bound_by']}), {block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s; "
+                      f"{tile_report(shape, xq.element_size())}", flush=True)
+            records.append(rec)
+    return records
+
+
+def check_trainable(torch, device):
+    """fused_block_trainable, both forms, vs autograd through the eager block.
+    Returns the launches of each kernel in this run (counts reset first)."""
+    from vub_image_denoising_tpu_torch.models.fused_apply import (_dense_block_xla,
+                                                                  fused_block_trainable)
+    from vub_image_denoising_tpu_torch.ops.fused_block import (fused_denoising_block,
+                                                               fused_denoising_block_packed)
+
+    fused_denoising_block.launches = fused_denoising_block_packed.launches = 0
+    max_err = 0.0
+    for shape in TRAINABLE_SHAPES:
+        c = shape[1]
+        gen = torch.Generator(device=device).manual_seed(3)
+        params = {k: v.clone().requires_grad_()
+                  for k, v in block_params(torch, c, seed=c + 1, device=device).items()}
+        x = torch.randn(shape, generator=gen, device=device).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        target = torch.randn(shape, generator=gen, device=device)
+        want_loss = (_dense_block_xla(params, x) - target).abs().mean()
+        want = torch.autograd.grad(want_loss, [x, *params.values()])
+        for packed, counter in ((False, fused_denoising_block),
+                                (True, fused_denoising_block_packed)):
+            before = counter.launches
+            loss = (fused_block_trainable(x, params, packed=packed) - target).abs().mean()
+            fwd = counter.launches - before
+            grads = torch.autograd.grad(loss, [x, *params.values()])
+            torch.cuda.synchronize()
+            bwd = counter.launches - before - fwd
+            loss_ok = abs(loss.item() - want_loss.item()) <= LOSS_RTOL * abs(want_loss.item())
+            grads_ok = all(torch.allclose(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+                           for g, w in zip(grads, want))
+            err = max((g - w).abs().max().item() for g, w in zip(grads, want))
+            max_err = max(max_err, err)
+            print(f"trainable block {shape} packed={packed}: loss {loss.item():.7f} vs "
+                  f"{want_loss.item():.7f}, max grad err {err:.3e} (rtol {GRAD_RTOL}, atol "
+                  f"{GRAD_ATOL}), launches forward {fwd} backward {bwd}", flush=True)
+            if not (loss_ok and grads_ok and fwd == 1 and bwd == 0):
+                fail(f"fused_block_trainable(packed={packed}) at {shape} is wrong")
+    return {"fused_denoising_block": fused_denoising_block.launches,
+            "fused_denoising_block_packed": fused_denoising_block_packed.launches,
+            "max_grad_err": max_err}
+
+
+def make_trainer(torch, init, engine, dtype):
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.train import SupervisedTrainer
+
+    model = RDUNet(3, BASE_FILTERS)
+    model.load_state_dict(init)
+    trainer = SupervisedTrainer(model, lr=1e-4, weight_decay=1e-5,
+                                accumulation_steps=ACCUMULATION, clip_norm=1.0,
+                                compute_dtype=dtype, engine=engine)
+    return trainer, trainer.init(steps_per_epoch=TRAIN_STEPS)
+
+
+def train_main_path(torch, device):
+    """SupervisedTrainer(engine="pallas") steps in f32 and bf16, checked;
+    returns (kernel-1 launches of the run, per-engine step times, breakdowns)."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
+
+    init = RDUNet(3, BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict()
+    gen = torch.Generator(device=device).manual_seed(2)
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        clean = torch.rand(TRAIN_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE, generator=gen,
+                           device=device) * 2 - 1
+        batches.append((clean + SIGMA * torch.randn(clean.shape, generator=gen, device=device),
+                        clean))
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    fused_denoising_block.launches = 0
+    after_one, first_loss = None, None
+    for name, dtype in dtypes.items():
+        trainer, state = make_trainer(torch, init, "pallas", dtype)
+        for i, (noisy, clean) in enumerate(batches):
+            before = fused_denoising_block.launches
+            state, loss = trainer.train_step(state, noisy, clean)
+            launches = fused_denoising_block.launches - before
+            print(f"train pallas {name} step {i}: loss {loss.item():.6f}, {launches} kernel "
+                  f"launches", flush=True)
+            if not bool(torch.isfinite(loss)) or launches != 14 * ACCUMULATION:
+                fail(f"train step {i} ({name}): loss {loss.item()}, {launches} launches")
+            if name == "f32" and i == 0:
+                after_one = {k: v.detach().clone() for k, v in state.params.items()}
+                first_loss = loss.item()
+    launches = fused_denoising_block.launches
+    compare_with_xla(torch, init, batches[0], after_one, first_loss)
+
+    step_ms, breakdowns = {}, {}
+    for name, dtype in dtypes.items():
+        for engine in ("pallas", "xla", "flax"):
+            trainer, state = make_trainer(torch, init, engine, dtype)
+            ms = cuda_ms(torch, lambda: trainer.train_step(state, *batches[0]), 2)
+            step_ms[f"{engine}_{name}"] = ms
+            print(f"train step RDUNet-32 {TRAIN_BATCH}x256x256 acc {ACCUMULATION} {engine} "
+                  f"{name}: {ms:.2f} ms", flush=True)
+            if engine == "pallas":
+                breakdowns[name] = step_breakdown(torch, trainer, state, batches[0], ms)
+    return launches, step_ms, breakdowns
+
+
+def compare_with_xla(torch, init, batch, adamw_params, adamw_loss):
+    """One f32 step on "pallas" against the same step on "xla" from the same
+    weights.  The params are held to the "xla" step's (rtol 1e-4, atol 1e-6)
+    after one accumulate -> clip 1.0 -> SGD(1e-2) step, the recipe of
+    tests/test_fused_apply.py:108-136.  AdamW's first update is lr * sign(g):
+    an element whose gradient is within the engines' f32 rounding of zero may
+    move by 2 lr the other way, so for the AdamW step the losses are held
+    (rtol 1e-5) and the elements off the tolerance are counted."""
+    from vub_image_denoising_tpu_torch.train import TrainState, make_supervised_train_step
+
+    trainer, state = make_trainer(torch, init, "xla", torch.float32)
+    _, loss = trainer.train_step(state, *batch)
+    off = sum(int(((v - adamw_params[k]).abs() > STEP_ATOL + STEP_RTOL * v.abs()).sum())
+              for k, v in state.params.items())
+    total = sum(v.numel() for v in state.params.values())
+    print(f"AdamW step, pallas vs xla: loss {adamw_loss:.7f} vs {loss.item():.7f}; {off} of "
+          f"{total} param elements off rtol {STEP_RTOL} / atol {STEP_ATOL}", flush=True)
+    if abs(adamw_loss - loss.item()) > LOSS_RTOL * abs(loss.item()):
+        fail("the pallas train step's loss disagrees with the xla step's")
+
+    after = {}
+    for engine in ("pallas", "xla"):
+        trainer, state = make_trainer(torch, init, engine, torch.float32)
+        opt = torch.optim.SGD(list(state.params.values()), lr=1e-2)
+        sgd = TrainState(state.params, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0),
+                         clip_norm=1.0)
+        make_supervised_train_step(trainer.forward_fn, ACCUMULATION)(
+            sgd, *(trainer.put(t) for t in batch))
+        after[engine] = {k: v.detach() for k, v in state.params.items()}
+    worst = max(((v - after["pallas"][k]).abs() / (STEP_ATOL + STEP_RTOL * v.abs())).max().item()
+                for k, v in after["xla"].items())
+    print(f"SGD step, pallas vs xla params: worst |diff| / (atol {STEP_ATOL} + rtol "
+          f"{STEP_RTOL}*|p|) = {worst:.3f} (must be <= 1)", flush=True)
+    if worst > 1:
+        fail("the pallas train step disagrees with the xla step")
+
+
+def step_breakdown(torch, trainer, state, batch, step_ms):
+    """Split one "pallas" step: forward (kernel-1 blocks, the rest), backward
+    (the eager blocks' recompute, the rest), the optimizer (clip, AdamW,
+    schedule), and what is left (gradient sums, launch gaps)."""
+    from vub_image_denoising_tpu_torch.models.fused_apply import _dense_block_xla
+    from vub_image_denoising_tpu_torch.ops.fused_block import (fused_denoising_block,
+                                                               pack_block_params)
+    from vub_image_denoising_tpu_torch.train.supervised import l1_loss
+
+    dtype = trainer.compute_dtype
+    noisy, clean = (trainer.put(t) for t in batch)
+    mb = TRAIN_BATCH // ACCUMULATION
+    params = list(state.params.values())
+
+    def forward(with_backward):
+        for i in range(ACCUMULATION):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss = l1_loss(trainer.forward_fn(state.params, noisy[sl].to(dtype)).float(),
+                           clean[sl].float())
+            if with_backward:
+                grads = torch.autograd.grad(loss, params)
+        return grads if with_backward else None
+
+    fwd_ms = cuda_ms(torch, lambda: forward(False), 3)
+    fwd_bwd_ms = cuda_ms(torch, lambda: forward(True), 3)
+    grads = forward(True)
+    opt_ms = cuda_ms(torch, lambda: state.apply_gradients(grads), 5)
+    blocks_ms = recompute_ms = 0.0
+    for (n, c, h, w), count in SLICE_SHAPES:
+        x = torch.randn(mb, c, h, w, device=noisy.device, dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+        p = {k: v.detach() for k, v in block_params(torch, c, c, noisy.device).items()}
+        kw = pack_block_params(p, dtype, x.device)
+        with torch.no_grad():
+            blocks_ms += count * ACCUMULATION * cuda_ms(
+                torch, lambda: fused_denoising_block(x, p, kw), 3)
+        for t in (x, *p.values()):  # the recompute builds the graph the backward uses
+            t.requires_grad_()
+        recompute_ms += count * ACCUMULATION * cuda_ms(torch, lambda: _dense_block_xla(p, x), 3)
+    out = {"step_ms": step_ms, "forward_ms": fwd_ms, "forward_blocks_ms": blocks_ms,
+           "forward_glue_and_loss_ms": fwd_ms - blocks_ms,
+           "backward_ms": fwd_bwd_ms - fwd_ms, "backward_recompute_ms": recompute_ms,
+           "backward_rest_ms": fwd_bwd_ms - fwd_ms - recompute_ms,
+           "optimizer_ms": opt_ms, "unattributed_ms": step_ms - fwd_bwd_ms - opt_ms,
+           "forward_share": fwd_ms / step_ms}
+    print(f"pallas step breakdown {str(dtype).split('.')[-1]}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()), flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -307,8 +595,6 @@ def main():
     try:
         from vub_image_denoising_tpu_torch import enable_strict_precision
         from vub_image_denoising_tpu_torch.models import RDUNet
-        from vub_image_denoising_tpu_torch.ops import cuda_build
-        from vub_image_denoising_tpu_torch.ops.fused_block import _library
         from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py ({e})")
@@ -324,39 +610,66 @@ def main():
     enable_strict_precision()
     device = torch.device("cuda")
 
-    t0 = time.monotonic()
-    _library()
-    print(f"build fused_block.cu: {time.monotonic() - t0:.1f} s "
-          f"(nvcc {cuda_build.build_seconds['fused_block']:.1f} s)", flush=True)
-
+    build_kernels()
     records = check_kernel(torch, device)
+    packed_records = check_packed_kernel(torch, device)
 
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "rdunet32.pth")
         save_pth(ck, RDUNet(3, BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict())
-        launches = serve_main_path(torch, ck)
+        serve_launches = serve_main_path(torch, ck)
         fwd = time_forward(torch, ck)
 
-    per_fwd = [(r, cnt) for r in records for s, cnt in SLICE_SHAPES
-               if r["kind"] == "slice" and r["shape"] == s and r["dtype"] == "bfloat16"]
-    kernel = {
-        "name": "fused_denoising_block",
-        "route": "cuda",
-        "source": "vub_image_denoising_tpu_torch/csrc/fused_block.cu",
-        "replaces": "vub_image_denoising_tpu/ops/fused_block.py:192",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in records),
-        "ms": sum(r["ms"] * cnt for r, cnt in per_fwd),
-        "plain_ms": sum(r["plain_ms"] * cnt for r, cnt in per_fwd),
-        "bound_ms": sum(r["bound_ms"] * cnt for r, cnt in per_fwd),
-        "bound_by": "operations" if all(r["bound_by"] == "operations" for r, _ in per_fwd)
-        else "bytes",
-        "library_ms": None,
-        "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, bf16",
-        "forward_ms": fwd,
-        "card": card,
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    trainable = check_trainable(torch, device)
+    train_launches, step_ms, breakdowns = train_main_path(torch, device)
+
+    def per_forward(recs, shapes):
+        return [(r, cnt) for r in recs for s, cnt in shapes
+                if r["kind"] == "slice" and r["shape"] == s and r["dtype"] == "bfloat16"]
+
+    def timing(recs, shapes):
+        rows = per_forward(recs, shapes)
+        return {
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": sum(r["ms"] * cnt for r, cnt in rows),
+            "plain_ms": sum(r["plain_ms"] * cnt for r, cnt in rows),
+            "bound_ms": sum(r["bound_ms"] * cnt for r, cnt in rows),
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r, _ in rows)
+            else "bytes",
+            "library_ms": None,
+        }
+
+    kernels = [
+        {
+            "name": "fused_denoising_block",
+            "route": "cuda",
+            "source": "vub_image_denoising_tpu_torch/csrc/fused_block.cu",
+            "replaces": "vub_image_denoising_tpu/ops/fused_block.py:192",
+            "launches": train_launches,
+            **timing(records, SLICE_SHAPES),
+            "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, bf16",
+            "launches_by_path": {"train": train_launches, "serve": serve_launches,
+                                 "trainable_block": trainable["fused_denoising_block"]},
+            "forward_ms": fwd,
+            "train_step_ms": step_ms,
+            "train_step_breakdown": breakdowns,
+            "card": card,
+        },
+        {
+            "name": "fused_denoising_block_packed",
+            "route": "cuda",
+            "source": "vub_image_denoising_tpu_torch/csrc/fused_block_packed.cu",
+            "replaces": "vub_image_denoising_tpu/ops/fused_block.py:359",
+            "launches": trainable["fused_denoising_block_packed"],
+            **timing(packed_records, PACKED_SHAPES),
+            "work": "the 12 blocks at c <= 128 of one RDUNet-32 forward, batch 8, "
+                    "256x256, bf16, run packed",
+            "launches_by_path": {"trainable_block": trainable["fused_denoising_block_packed"]},
+            "trainable_max_grad_err": trainable["max_grad_err"],
+            "card": card,
+        },
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

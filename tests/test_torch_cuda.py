@@ -1,4 +1,6 @@
-"""The fused DenoisingBlock kernel against its plain version, on the card.
+"""The fused DenoisingBlock kernels (plain NHWC and 2x2 even-packed), the
+differentiable block and a module backward, against their plain versions on
+the card.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit and skips without
 one.  The file imports neither JAX nor the JAX package, so it also runs where
@@ -15,8 +17,10 @@ import torch
 
 from vub_image_denoising_tpu_torch import enable_strict_precision
 from vub_image_denoising_tpu_torch.models import RDUNet
+from vub_image_denoising_tpu_torch.models import fused_apply as fa
 from vub_image_denoising_tpu_torch.nn.blocks import DenoisingBlock
 from vub_image_denoising_tpu_torch.ops import fused_block as fb
+from vub_image_denoising_tpu_torch.ops.packing import pack2x2, unpack2x2
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +110,88 @@ def test_cuda_rdunet_forward_runs_14_kernels(cuda):
         torch.cuda.synchronize()
     assert fb.fused_denoising_block.launches == before + 14
     torch.testing.assert_close(y.cpu(), want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 38, 46), (1, 32, 20, 18), (1, 256, 10, 12)])
+def test_cuda_packed_kernel_matches_plain(cuda, dtype, shape):
+    """Kernel 2 on pack2x2(x) against its plain version (f32) and, unpacked,
+    against kernel 1 on x (the contract)."""
+    params = _block(shape[1], cuda)
+    pq = fb.pack_block_params_packed(params)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda).to(getattr(torch, dtype))
+    xq = pack2x2(x.contiguous(memory_format=torch.channels_last))
+    before = fb.fused_denoising_block_packed.launches
+    yq = fb.fused_denoising_block_packed(xq, pq)
+    torch.cuda.synchronize()
+    assert fb.fused_denoising_block_packed.launches == before + 1
+    assert yq.dtype == xq.dtype and yq.shape == xq.shape
+    want = fb.fused_denoising_block_packed_plain(xq.float(), pq)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(yq, want, atol=1e-4, rtol=1e-4)
+        one = fb.fused_denoising_block(x.contiguous(memory_format=torch.channels_last), params)
+        torch.testing.assert_close(unpack2x2(yq), one, atol=1e-4, rtol=1e-4)
+    else:
+        assert (yq.float() - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+def test_cuda_packed_kernel_border_and_checks(cuda):
+    params = _block(32, cuda, seed=2)
+    pq = fb.pack_block_params_packed(params)
+    x = torch.ones(1, 32, 24, 24, device=cuda)
+    y = unpack2x2(fb.fused_denoising_block_packed(pack2x2(x), pq))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, fb.fused_denoising_block_plain(x, params), atol=1e-4, rtol=1e-4)
+    assert not torch.allclose(y[0, :, 0, 12], y[0, :, 12, 12], atol=1e-3)
+    xq = pack2x2(x)
+    with pytest.raises(ValueError, match="NHWC"):
+        fb.fused_denoising_block_packed(xq.contiguous(), pq)
+    with pytest.raises(ValueError, match="packed channels"):
+        fb.fused_denoising_block_packed(xq[:, :64].contiguous(memory_format=torch.channels_last),
+                                        pq)
+    with pytest.raises(ValueError, match="another dtype"):
+        fb.fused_denoising_block_packed(xq, pq, fb.kernel_weights_from_packed(pq, torch.bfloat16))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_fused_block_trainable_matches_eager_grads(cuda, packed):
+    """One kernel launch forward, none backward; loss and grads equal autograd
+    through the eager block on the card."""
+    params = {k: v.clone().requires_grad_() for k, v in _block(32, cuda, seed=4).items()}
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 32, 24, 20, generator=gen, device=cuda).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    target = torch.randn(x.shape, generator=gen, device=cuda)
+    counter = fb.fused_denoising_block_packed if packed else fb.fused_denoising_block
+    before = counter.launches
+    loss = (fa.fused_block_trainable(x, params, packed=packed) - target).abs().mean()
+    assert counter.launches == before + 1
+    grads = torch.autograd.grad(loss, [x, *params.values()])
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want_loss = (fa._dense_block_xla(params, x) - target).abs().mean()
+    want = torch.autograd.grad(want_loss, [x, *params.values()])
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_cuda_rdunet_backward_runs_14_kernels(cuda):
+    """loss.backward() through RDUNet's modules on the card: 14 kernel
+    launches forward, grads equal the CPU module path's (plain blocks).  The
+    loss is smooth (squares): an L1 loss flips the sign of its cotangent
+    where an output is within the CPU-vs-card rounding of zero."""
+    model = RDUNet(3, 8, generator=torch.Generator().manual_seed(0))
+    x = torch.rand(2, 3, 32, 48, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    ((model(x) - x) ** 2).mean().backward()
+    want = {k: p.grad.clone() for k, p in model.named_parameters()}
+    gpu = model.to(cuda).to(memory_format=torch.channels_last)
+    gpu.zero_grad(set_to_none=True)
+    before = fb.fused_denoising_block.launches
+    xc = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    ((gpu(xc) - xc) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert fb.fused_denoising_block.launches == before + 14
+    for k, p in gpu.named_parameters():
+        torch.testing.assert_close(p.grad.cpu(), want[k], rtol=1e-3, atol=1e-5, msg=k)

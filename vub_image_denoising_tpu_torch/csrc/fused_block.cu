@@ -18,18 +18,7 @@
 // 2.29x for the 4x4 tile of f32 at c = 256.
 // The math is in fused_block.cuh.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#define FB_DEVICE __device__ __forceinline__
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
-}
 
 #include "fused_block.cuh"
 
@@ -47,7 +36,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(BlockArgs a) {
     const int x0 = (blockIdx.x % tiles_x) * a.tw;
     const int b = blockIdx.y;
     for (int level = 0; level < 4; ++level) {
-        fb_level<T, kPositions>(a, level, y0, x0, b, smem, threadIdx.x, blockDim.x);
+        fb_level<T, kPositions, false>(a, level, y0, x0, b, smem, threadIdx.x, blockDim.x);
         __syncthreads();
     }
 }

@@ -1,8 +1,5 @@
-// One DenoisingBlock, one output tile: the arithmetic of the fused kernel.
-//
-// The including file defines the element conversions `float to_f(T)` and
-// `T from_f<T>(float)` (round to nearest even) for every element type T it
-// instantiates, and the qualifiers `FB_DEVICE` for device functions.
+// One DenoisingBlock, one output tile: the arithmetic of the fused kernels
+// (fused_block.cu on NHWC, fused_block_packed.cu on the 2x2 even-packed layout).
 //
 // A thread block owns one (image b, th x tw output tile).  The block runs the
 // four convs as four levels over a shrinking halo pyramid:
@@ -14,6 +11,9 @@
 //   3          th    x  tw,    offset 0   [x, o0, o1, o2]       y  -> global
 //
 // (offset: the region starts that many rows/cols above/left of the tile).
+// The layout parameter PACKED only changes where pixel (b, gy, gx) of x and y
+// lies in memory (fb_pixel); the c channels of one pixel are contiguous in
+// both layouts, so the arithmetic is the same.
 // x is read from global memory (through L1/L2); o0..o2 live only in shared
 // memory.  Samples of o0..o2 that lie outside the image are stored as zero,
 // in rows AND columns, so each nested SAME conv sees exactly the zero padding
@@ -22,13 +22,38 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+
+#define FB_DEVICE __device__ __forceinline__
+
+// Element conversions; from_f rounds to nearest even.
+FB_DEVICE float to_f(float v) { return v; }
+FB_DEVICE float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> FB_DEVICE T from_f(float v);
+template <> FB_DEVICE float from_f<float>(float v) { return v; }
+template <> FB_DEVICE __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
+}
+
 struct BlockArgs {
-    const void* x;      // (n, h, w, c) NHWC, element type T
-    const void* wgt;    // conv_0..conv_3 packed tap-major (9, K_i, N_i), type T
+    const void* x;      // (n, h, w, c) NHWC, or (n, h/2, w/2, 4c) even-packed; type T
+    const void* wgt;    // conv_0..conv_3 tap-major (9, K_i, N_i), type T
     const float* ba;    // bias_0..bias_3 then alpha_0..alpha_3, f32
-    void* y;            // (n, h, w, c) NHWC, element type T
-    int n, h, w, c, inner, th, tw;
+    void* y;            // laid out like x, element type T
+    int n, h, w, c, inner, th, tw;  // h, w: the image's (unpacked) size
 };
+
+// Element offset of channel 0 of image pixel (b, gy, gx).  NHWC, or with
+// PACKED the even-packed layout: packed pixel (gy/2, gx/2), channel
+// (a*2 + b')*c + k for sub-pixel a = gy&1, b' = gx&1 (h and w even).
+template <bool PACKED>
+FB_DEVICE long long fb_pixel(const BlockArgs& a, int b, int gy, int gx) {
+    if (PACKED) {
+        const long long q = ((long long)b * (a.h >> 1) + (gy >> 1)) * (a.w >> 1) + (gx >> 1);
+        return q * 4 * a.c + ((gy & 1) * 2 + (gx & 1)) * a.c;
+    }
+    return (((long long)b * a.h + gy) * a.w + gx) * a.c;
+}
 
 // Offsets into the packed weight buffer and the bias/alpha buffer.
 FB_DEVICE long long fb_weight_offset(int c, int inner, int level) {
@@ -41,7 +66,7 @@ FB_DEVICE long long fb_weight_offset(int c, int inner, int level) {
 // A work item is P consecutive positions of the level's region and one output
 // channel; neighbouring threads take neighbouring channels, so their weight
 // reads coalesce and their activation reads broadcast.
-template <typename T, int P>
+template <typename T, int P, bool PACKED>
 FB_DEVICE void fb_level(const BlockArgs& a, int level, int y0, int x0, int b,
                         T* smem, int tid, int nthreads) {
     const int c = a.c, inner = a.inner;
@@ -84,8 +109,7 @@ FB_DEVICE void fb_level(const BlockArgs& a, int level, int y0, int x0, int b,
                     const int gy = y0 - 3 + level + pr[p] + dy - 1;
                     const int gx = x0 - 3 + level + pc[p] + dx - 1;
                     ok[p] = gy >= 0 && gy < a.h && gx >= 0 && gx < a.w;
-                    xp[p] = xg + (((long long)b * a.h + (ok[p] ? gy : 0)) * a.w +
-                                  (ok[p] ? gx : 0)) * c;
+                    xp[p] = xg + fb_pixel<PACKED>(a, b, ok[p] ? gy : 0, ok[p] ? gx : 0);
                 }
                 for (int k = 0; k < c; ++k) {
                     const float wv = to_f(wt[(long long)k * nout]);
@@ -129,7 +153,7 @@ FB_DEVICE void fb_level(const BlockArgs& a, int level, int y0, int x0, int b,
                 smem[s_off[level] + ((long long)pr[p] * rw + pc[p]) * inner + o] =
                     from_f<T>(inside ? v : 0.f);
             } else if (inside) {
-                const long long at = (((long long)b * a.h + gy) * a.w + gx) * c + o;
+                const long long at = fb_pixel<PACKED>(a, b, gy, gx) + o;
                 static_cast<T*>(a.y)[at] = from_f<T>(v + to_f(xg[at]));
             }
         }

@@ -17,17 +17,9 @@ import torch
 
 from ..models.rdunet import RDUNet
 from ..utils import checkpoint as ckpt_io
+from ..utils.device import resolve_device
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Without CUDA this raises: the CPU is used only
-    when the caller asks for it with ``device="cpu"``."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    return device
 
 
 def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,

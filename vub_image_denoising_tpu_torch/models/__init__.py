@@ -1,5 +1,5 @@
 """Models."""
 
-from .rdunet import RDUNet
+from .rdunet import RDUNet, RDUNetT
 
-__all__ = ["RDUNet"]
+__all__ = ["RDUNet", "RDUNetT"]

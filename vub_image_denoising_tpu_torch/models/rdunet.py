@@ -1,29 +1,41 @@
-"""RDUNet — the supervised residual-dense U-Net denoiser.
+"""RDUNet — the supervised residual-dense U-Net denoiser — and its
+time-conditioned twin RDUNetT.
 
-Counterpart of ``RDUNet`` in ``vub_image_denoising_tpu/models/rdunet.py``
-(reference UNet/RDUNet_model.py:117-186): 4 scales, two DenoisingBlocks per
-scale on the encoder and the decoder paths (14 in all), global residual
-``output + input``.  base_filters=128 gives 166,375,174 params, 64 gives
-41,604,998.
+Counterparts of ``RDUNet`` and ``RDUNetT`` in
+``vub_image_denoising_tpu/models/rdunet.py``:
 
-The JAX model wraps the trunk in a ``core`` level; this one does not, so its
+- ``RDUNet`` (reference UNet/RDUNet_model.py:117-186): 4 scales, two
+  DenoisingBlocks per scale on the encoder and the decoder paths (14 in all),
+  global residual ``output + input``.  base_filters=128 gives 166,375,174
+  params, 64 gives 41,604,998.
+- ``RDUNetT`` (reference diffusion_denoising/Unet/Unet_model.py:92-166): the
+  same trunk; the normalized timestep t is broadcast to one HxW plane and
+  concatenated as the last input channel, the output block always maps to
+  ``out_channels`` (3), and the residual adds the 3-channel image input.
+  base_filters=32 gives 10,407,142 params.
+
+The JAX models wrap the trunk in a ``core`` level; these do not, so their
 state_dict keys are the reference keys.  Input and output are (N, C, H, W);
 run in bf16 by passing a bf16 input (params stay f32).  On the card, pass
 channels_last memory to keep the blocks' kernel free of layout copies.
 """
 
+import torch
 from torch import nn
 
 from ..nn.blocks import DenoisingBlock, DownsampleBlock, InputBlock, OutputBlock, UpsampleBlock
+from .fused_apply import t_plane
 
 
-class RDUNet(nn.Module):
-    def __init__(self, channels: int = 3, base_filters: int = 64, generator=None):
+class _RDUNetCore(nn.Module):
+    """The shared encoder/decoder trunk, without the global residual."""
+
+    def __init__(self, in_channels: int, base_filters: int, out_channels: int, generator=None):
         super().__init__()
         f0 = base_filters
         f1, f2, f3 = 2 * f0, 4 * f0, 8 * f0
         g = generator
-        self.input_block = InputBlock(channels, f0, g)
+        self.input_block = InputBlock(in_channels, f0, g)
         self.block_0_0 = DenoisingBlock(f0, f0 // 2, f0, g)
         self.block_0_1 = DenoisingBlock(f0, f0 // 2, f0, g)
         self.down_0 = DownsampleBlock(f0, f1, g)
@@ -44,9 +56,9 @@ class RDUNet(nn.Module):
         self.up_0 = UpsampleBlock(f1, f0, g)
         self.block_0_2 = DenoisingBlock(f0, f0 // 2, f0, g)
         self.block_0_3 = DenoisingBlock(f0, f0 // 2, f0, g)
-        self.output_block = OutputBlock(f0, channels, g)
+        self.output_block = OutputBlock(f0, out_channels, g)
 
-    def forward(self, x):
+    def trunk(self, x):
         out_0 = self.block_0_1(self.block_0_0(self.input_block(x)))
         out_1 = self.block_1_1(self.block_1_0(self.down_0(out_0)))
         out_2 = self.block_2_1(self.block_2_0(self.down_1(out_1)))
@@ -54,4 +66,23 @@ class RDUNet(nn.Module):
         out_4 = self.block_2_3(self.block_2_2(self.up_2(out_3, out_2)))
         out_5 = self.block_1_3(self.block_1_2(self.up_1(out_4, out_1)))
         out_6 = self.block_0_3(self.block_0_2(self.up_0(out_5, out_0)))
-        return self.output_block(out_6) + x
+        return self.output_block(out_6)
+
+
+class RDUNet(_RDUNetCore):
+    def __init__(self, channels: int = 3, base_filters: int = 64, generator=None):
+        super().__init__(channels, base_filters, channels, generator)
+
+    def forward(self, x):
+        return self.trunk(x) + x
+
+
+class RDUNetT(_RDUNetCore):
+    """``t`` is the normalized timestep: a scalar, an (N,) vector or an
+    (N, 1, H, W) plane."""
+
+    def __init__(self, base_filters: int = 64, out_channels: int = 3, generator=None):
+        super().__init__(out_channels + 1, base_filters, out_channels, generator)
+
+    def forward(self, x, t):
+        return self.trunk(torch.cat([x, t_plane(t, x)], 1)) + x

@@ -73,9 +73,11 @@ class DenoisingBlock(nn.Module):
     and all earlier conv outputs; the last conv's output is added to the input.
 
     The forward is ``ops.fused_block.fused_denoising_block``: the CUDA kernel on
-    the card, its plain version on the CPU.  The kernel's weight layout is
-    built once per (dtype, device) and rebuilt when a parameter changes
-    (``load_state_dict``, ``.to``)."""
+    the card, its plain version on the CPU.  When autograd needs a graph it
+    is ``models.fused_apply.fused_block_trainable``: the same kernel forward,
+    and a backward that differentiates the eager block.  The kernel's weight
+    layout is built once per (dtype, device) and rebuilt when a parameter
+    changes (``load_state_dict``, ``.to``, an optimizer step)."""
 
     def __init__(self, in_channels: int, inner_channels: int, out_channels: int,
                  generator=None):
@@ -99,8 +101,14 @@ class DenoisingBlock(nn.Module):
         return self._packed
 
     def forward(self, x):
+        from ..models.fused_apply import fused_block_trainable  # models import nn
+
         params = dict(self.named_parameters())
-        if x.device.type == "cpu":
-            return fused_denoising_block(x, params)
-        x = x.contiguous(memory_format=torch.channels_last)
-        return fused_denoising_block(x, params, self._kernel_weights(params, x.dtype, x.device))
+        weights = None
+        if x.device.type != "cpu":
+            x = x.contiguous(memory_format=torch.channels_last)
+            weights = self._kernel_weights(params, x.dtype, x.device)
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in params.values())):
+            return fused_block_trainable(x, params, kernel_weights=weights)
+        return fused_denoising_block(x, params, weights)

@@ -20,7 +20,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks = {}  # library name -> lock; libraries build in parallel, each once
 _loaded = {}
 build_seconds = {}  # library name -> seconds its nvcc run took (0 when cached)
 
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 
 def load_library(name: str, source: str, headers=()) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (which may include ``csrc/<headers>``) once and
-    return the loaded library; thread-safe."""
-    with _lock:
+    return the loaded library; thread-safe, and two libraries may build at once."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())

@@ -27,14 +27,21 @@ Tensors are logically NCHW, as everywhere in PyTorch, and the kernel takes
 them in NHWC memory (``torch.channels_last``).  The wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the kernel
 or raises.
+
+``fused_denoising_block_packed`` is the same block on the 2x2 even-packed
+layout of ``ops/packing.py`` (kernel 2, ``csrc/fused_block_packed.cu``); see
+its docstring.
 """
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .cuda_build import load_library
+from .packing import pack_conv3x3_weights, pack_vec, packed_taps_conv, reshift2d
 
 # Candidate output tiles (rows, cols), largest first.  The first that fits two
 # blocks on one SM (2 x 113 KB of its 228 KB) is taken, else the first that fits
@@ -104,14 +111,71 @@ def pack_block_params(params, dtype, device):
 
 def _library():
     lib = load_library("fused_block", "fused_block.cu", ("fused_block.cuh",))
-    fn = lib.fused_block_launch
+    _declare(lib, "fused_block")
+    return lib
+
+
+def _packed_library():
+    lib = load_library("fused_block_packed", "fused_block_packed.cu", ("fused_block.cuh",))
+    _declare(lib, "fused_block_packed")
+    return lib
+
+
+def _declare(lib, prefix):
+    fn = getattr(lib, f"{prefix}_launch")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.fused_block_error_string.argtypes = [ctypes.c_int]
-        lib.fused_block_error_string.restype = ctypes.c_char_p
-    return lib
+        err = getattr(lib, f"{prefix}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+
+
+def _check_input(name, x, params_desc):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {x.dtype} (want float32 or bfloat16)")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be 4-D (N,C,H,W), got {tuple(x.shape)}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name}: x must be NHWC memory "
+                         "(x.contiguous(memory_format=torch.channels_last))")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in params_desc.values())):
+        raise RuntimeError(f"{name} has no backward: call it under torch.no_grad() or "
+                           "torch.inference_mode(), or use models.fused_apply."
+                           "fused_block_trainable")
+
+
+def _check_kernel_weights(name, weights, x, c, inner):
+    wpk, ba = weights
+    if wpk.dtype != x.dtype or wpk.device != x.device or ba.device != x.device:
+        raise ValueError(f"{name}: kernel weights are for another dtype/device")
+    if (wpk.numel() != block_weight_count(c, inner) or ba.numel() != 2 * (3 * inner + c)
+            or ba.dtype != torch.float32 or not (wpk.is_contiguous() and ba.is_contiguous())):
+        raise ValueError(f"{name}: kernel weights are not pack_block_params of this block")
+
+
+def _launch(name, lib, prefix, x, weights, n, h, w, c, inner):
+    """Allocate y like x and launch the block kernel over the (h x w) image."""
+    wpk, ba = weights
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    if y.numel() == 0:
+        return y
+    th, tw = pick_tile(inner, x.element_size())
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"{prefix}_launch")(
+            x.data_ptr(), wpk.data_ptr(), ba.data_ptr(), y.data_ptr(),
+            n, h, w, c, inner, th, tw, int(x.dtype == torch.bfloat16),
+            smem_bytes(inner, th, tw, x.element_size()),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        msg = getattr(lib, f"{prefix}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
+    return y
 
 
 def fused_denoising_block(x, params, packed=None):
@@ -121,15 +185,11 @@ def fused_denoising_block(x, params, packed=None):
     it launches the kernel: ``x`` must be f32 or bf16 in channels_last memory;
     ``packed`` is ``pack_block_params(params, x.dtype, x.device)``, which
     callers cache (it is built here when omitted).  The kernel has no backward:
-    call it under ``torch.no_grad()`` or ``torch.inference_mode()``."""
+    call it under ``torch.no_grad()`` or ``torch.inference_mode()``, or train
+    through ``models.fused_apply.fused_block_trainable``."""
     if x.device.type == "cpu":
         return fused_denoising_block_plain(x, params)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_denoising_block: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_denoising_block: dtype {x.dtype} (want float32 or bfloat16)")
-    if x.dim() != 4:
-        raise ValueError(f"fused_denoising_block: x must be 4-D (N,C,H,W), got {tuple(x.shape)}")
+    _check_input("fused_denoising_block", x, params)
     n, c, h, w = x.shape
     inner = params["conv_0.weight"].shape[0]
     if params["conv_0.weight"].shape[1] != c or params["conv_3.weight"].shape[0] != c:
@@ -139,38 +199,170 @@ def fused_denoising_block(x, params, packed=None):
         if tuple(params[f"conv_{i}.weight"].shape) != want:
             raise ValueError(f"fused_denoising_block: conv_{i}.weight is "
                              f"{tuple(params[f'conv_{i}.weight'].shape)}, want {want}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("fused_denoising_block: x must be NHWC memory "
-                         "(x.contiguous(memory_format=torch.channels_last))")
-    if torch.is_grad_enabled() and (x.requires_grad or params["conv_0.weight"].requires_grad):
-        raise RuntimeError("fused_denoising_block has no backward: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
     if packed is None:
         packed = pack_block_params(params, x.dtype, x.device)
-    wpk, ba = packed
-    if wpk.dtype != x.dtype or wpk.device != x.device or ba.device != x.device:
-        raise ValueError("fused_denoising_block: packed weights are for another dtype/device")
-    if (wpk.numel() != block_weight_count(c, inner) or ba.numel() != 2 * (3 * inner + c)
-            or ba.dtype != torch.float32 or not (wpk.is_contiguous() and ba.is_contiguous())):
-        raise ValueError("fused_denoising_block: packed weights are not "
-                         "pack_block_params of this block")
-    y = torch.empty_like(x, memory_format=torch.channels_last)
-    if y.numel() == 0:
-        return y
-    th, tw = pick_tile(inner, x.element_size())
-    lib = _library()
-    with torch.cuda.device(x.device):
-        rc = lib.fused_block_launch(
-            x.data_ptr(), wpk.data_ptr(), ba.data_ptr(), y.data_ptr(),
-            n, h, w, c, inner, th, tw, int(x.dtype == torch.bfloat16),
-            smem_bytes(inner, th, tw, x.element_size()),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        msg = lib.fused_block_error_string(rc).decode()
-        raise RuntimeError(f"fused_denoising_block launch failed: {msg} (cudaError {rc})")
+    _check_kernel_weights("fused_denoising_block", packed, x, c, inner)
+    y = _launch("fused_denoising_block", _library(), "fused_block", x, packed, n, h, w, c, inner)
     fused_denoising_block.launches += 1
     return y
 
 
 fused_denoising_block.launches = 0  # kernel launches since the last reset
+
+
+# ---------------------------------------------------------------------------
+# The block on the 2x2 even-packed layout (kernel 2)
+# ---------------------------------------------------------------------------
+
+def pack_block_params_packed(params):
+    """The block's params (state_dict keys) in the packed kernel's form.
+
+    Counterpart of ``pack_block_params_packed``: ``conv_i.weight`` becomes the
+    tap-stacked packed taps (4K, 16N), column t*4N + (a*2+b)*N + n, from
+    ``pack_conv3x3_weights(..., in_segments=[c, inner, ...], "desc")``;
+    ``conv_i.bias`` and ``actv_i.weight`` are tiled 4x.  Differentiable."""
+    c, inner = params["conv_0.weight"].shape[1], params["conv_0.weight"].shape[0]
+    out = {}
+    for i in range(4):
+        w2 = pack_conv3x3_weights(params[f"conv_{i}.weight"], [c] + [inner] * i, "desc")
+        t, k4, n4 = w2.shape
+        out[f"conv_{i}.weight"] = w2.permute(1, 0, 2).reshape(k4, t * n4)
+        out[f"conv_{i}.bias"] = pack_vec(params[f"conv_{i}.bias"])
+        out[f"actv_{i}.weight"] = pack_vec(params[f"actv_{i}.weight"])
+    return out
+
+
+def packed_block_dims(packed_params):
+    """(c, inner) of the unpacked block that ``packed_params`` describe."""
+    k4, n16 = packed_params["conv_0.weight"].shape
+    return k4 // 4, n16 // 16
+
+
+@functools.lru_cache(maxsize=32)
+def _tap_major_index(c, inner, device):
+    """Flat index into the four packed conv weights, flattened and concatenated,
+    that gathers kernel 1's tap-major (9, K, N) weights, conv_0..conv_3.
+
+    Tap (ky, kx) of a 3x3 conv is the packed entry for output sub-pixel
+    (a, b) = (0, 0): dy = 2u-1+abar, so ky = 0, 1, 2 is (u, abar) = (0, 0),
+    (0, 1), (1, 0), and likewise kx; the row is the shifted sub-pixel's block
+    of k's segment in 'desc' order."""
+    u_of, sub_of = np.array([0, 0, 1]), np.array([0, 1, 0])
+    ky = np.arange(3)[:, None, None, None]
+    kx = np.arange(3)[None, :, None, None]
+    parts, base = [], 0
+    for i in range(4):
+        k_total, n_out = c + i * inner, inner if i < 3 else c
+        k = np.arange(k_total)
+        seg = np.where(k < c, c, inner)
+        seg_off = np.where(k < c, 0, c + (k - c) // inner * inner)
+        s_pos = 3 - (sub_of[ky] * 2 + sub_of[kx])
+        row = 4 * seg_off[None, None, :, None] + s_pos * seg[None, None, :, None] + (
+            k - seg_off)[None, None, :, None]
+        col = (u_of[ky] * 2 + u_of[kx]) * 4 * n_out + np.arange(n_out)[None, None, None, :]
+        parts.append((base + row * 16 * n_out + col).reshape(-1))
+        base += 4 * k_total * 16 * n_out
+    return torch.from_numpy(np.concatenate(parts)).to(device)
+
+
+def kernel_weights_from_packed(packed_params, dtype):
+    """Kernel 1's weight layout (``pack_block_params``) recovered from the
+    packed params by one gather on their device: the nine 3x3 taps of each
+    conv, and the bias and alpha of sub-pixel (0, 0).  Exact inverse of
+    ``pack_block_params_packed``."""
+    c, inner = packed_block_dims(packed_params)
+    flat = torch.cat([packed_params[f"conv_{i}.weight"].detach().reshape(-1) for i in range(4)])
+    w = flat[_tap_major_index(c, inner, flat.device)].to(dtype).contiguous()
+    nouts = [inner] * 3 + [c]
+    ba = [packed_params[f"conv_{i}.bias"].detach()[:nouts[i]] for i in range(4)]
+    ba += [packed_params[f"actv_{i}.weight"].detach()[:nouts[i]] for i in range(4)]
+    return w, torch.cat(ba).to(torch.float32).contiguous()
+
+
+def fused_denoising_block_packed_plain(xq, packed_params):
+    """The packed block in plain PyTorch ops, with kernel 1's casts.
+
+    Runs the TPU kernel's arithmetic: at each level every part is re-expressed
+    as shifted-packed in 'desc' order (``reshift2d``), the parts are
+    concatenated, and the 2x2 packed taps are one VALID conv in f32 (16/9 of
+    the useful FLOPs).  Bias in f32, one cast, PReLU in the compute dtype."""
+    dtype = xq.dtype
+
+    def level(parts, i):
+        xs = torch.cat([reshift2d(F.pad(p, (0, 1, 0, 1)), p.shape[1] // 4, "desc")
+                        for p in parts], 1)
+        w = packed_params[f"conv_{i}.weight"]
+        w2 = w.to(dtype).float().reshape(w.shape[0], 4, w.shape[1] // 4).permute(1, 0, 2)
+        y = packed_taps_conv(xs.float(), w2)
+        y = (y + packed_params[f"conv_{i}.bias"].float().view(1, -1, 1, 1)).to(dtype)
+        alpha = packed_params[f"actv_{i}.weight"].to(dtype).view(1, -1, 1, 1)
+        return torch.clamp_min(y, 0) + alpha * torch.clamp_max(y, 0)
+
+    o0 = level([xq], 0)
+    o1 = level([xq, o0], 1)
+    o2 = level([xq, o0, o1], 2)
+    return level([xq, o0, o1, o2], 3) + xq
+
+
+def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
+    """Apply one DenoisingBlock to an even-packed ``xq`` (N, 4C, H/2, W/2).
+
+    Replaces the Pallas TPU kernel ``fused_denoising_block_packed``
+    (``vub_image_denoising_tpu/ops/fused_block.py:359``), with its contract:
+    ``unpack2x2(fused_denoising_block_packed(pack2x2(x),
+    pack_block_params_packed(p))) == fused_denoising_block(x, p)``.
+
+    On a CPU tensor this is ``fused_denoising_block_packed_plain``.  On a CUDA
+    tensor it launches ``csrc/fused_block_packed.cu``, which addresses the
+    packed layout by index and computes the nine 3x3 taps (kernel 1's halo
+    pyramid).  ``kernel_weights`` is ``kernel_weights_from_packed(
+    packed_params, xq.dtype)``, which callers cache per parameter version (it
+    is gathered here when omitted).  No backward, like kernel 1."""
+    name = "fused_denoising_block_packed"
+    c, inner = packed_block_dims(packed_params)
+    if xq.dim() != 4 or xq.shape[1] != 4 * c:
+        raise ValueError(f"{name}: x {tuple(xq.shape)} has not the 4 x {c} packed channels "
+                         "of these params")
+    if xq.device.type == "cpu":
+        return fused_denoising_block_packed_plain(xq, packed_params)
+    _check_input(name, xq, packed_params)
+    n, _, hq, wq = xq.shape
+    for i in range(4):
+        want = (4 * (c + i * inner), 16 * (inner if i < 3 else c))
+        if tuple(packed_params[f"conv_{i}.weight"].shape) != want:
+            raise ValueError(f"{name}: conv_{i}.weight is "
+                             f"{tuple(packed_params[f'conv_{i}.weight'].shape)}, want {want}")
+    if kernel_weights is None:
+        kernel_weights = kernel_weights_from_packed(packed_params, xq.dtype)
+    _check_kernel_weights(name, kernel_weights, xq, c, inner)
+    y = _launch(name, _packed_library(), "fused_block_packed", xq, kernel_weights,
+                n, 2 * hq, 2 * wq, c, inner)
+    fused_denoising_block_packed.launches += 1
+    return y
+
+
+fused_denoising_block_packed.launches = 0  # kernel launches since the last reset
+
+
+def pad_block_params(params, cpad):
+    """Zero-pad a DenoisingBlock's params (state_dict keys, OIHW) so the block
+    runs on ``cpad``-channel inputs whose extra channels are zero.
+
+    Counterpart of ``pad_block_params``: each conv's x-slice of input
+    channels gets zero rows, conv_3 zero output channels with zero bias and
+    alpha, so the padded channels stay zero through the residual.  Inner
+    channels are untouched."""
+    cin = params["conv_0.weight"].shape[1]
+    extra = cpad - cin
+    if extra == 0:
+        return dict(params)
+    out = dict(params)
+    out["conv_0.weight"] = F.pad(params["conv_0.weight"], (0, 0, 0, 0, 0, extra))
+    for i in (1, 2, 3):
+        k = params[f"conv_{i}.weight"]
+        out[f"conv_{i}.weight"] = torch.cat(
+            [F.pad(k[:, :cin], (0, 0, 0, 0, 0, extra)), k[:, cin:]], 1)
+    out["conv_3.weight"] = F.pad(out["conv_3.weight"], (0, 0, 0, 0, 0, 0, 0, extra))
+    out["conv_3.bias"] = F.pad(params["conv_3.bias"], (0, extra))
+    out["actv_3.weight"] = F.pad(params["actv_3.weight"], (0, extra))
+    return out
