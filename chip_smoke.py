@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU, end to end, and check it.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds both DenoisingBlock kernels from ``csrc/`` with nvcc, in parallel:
-   kernel 1 (NHWC) and kernel 2 (2x2 even-packed).
+2. Builds the three DenoisingBlock libraries from ``csrc/`` with nvcc, in
+   parallel: kernel 1 on the CUDA cores (NHWC, f32 and bf16 outside
+   TC_WIDTHS), kernel 1 on the tensor cores (bf16, ``fused_block_tc.cu``),
+   and kernel 2 (2x2 even-packed); prints each kernel's ptxas registers and
+   spills.
 3. Holds kernel 1 against its plain PyTorch version on the card at every
-   block shape of an RDUNet-32 forward on 8 x 256^2 images, on a ragged shape
-   and on a constant input (border case), in f32 (TF32 off) and bf16.
+   block shape of an RDUNet-32 forward on 8 x 256^2 images, at the four
+   micro-batch-2 shapes of a train step, on a ragged shape and on a constant
+   input (border case), in f32 (TF32 off, CUDA cores) and bf16 (tensor
+   cores; each bf16 launch must be a tensor-core launch).  The CUDA-core
+   kernel is held in bf16 on the same inputs too, since it serves bf16 at
+   other widths.  Times both dtypes and both bf16 kernels at the batch-8 and
+   micro-batch shapes beside each shape's tile and thread blocks.
 4. Holds kernel 2 against its plain version at the packed shapes of the
    RDUNet-32 blocks at c <= 128, a ragged and a border case, f32 and bf16,
    and, unpacked, against kernel 1 (its contract).
@@ -16,8 +24,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    .pth) through the port's BatchingDenoiseService over HTTP, in bf16 and in
    f32: 8 concurrent raw 256x256x3 requests, one PNG request and /healthz
    each.  Checks the responses, that every dispatched batch launched the
-   kernel 14 times, and that the served f32 output matches the plain-version
-   forward on the CPU.
+   kernel 14 times (on the tensor cores for every bf16 batch), and that the
+   served f32 output matches the plain-version forward on the CPU.
 6. Times each block shape (kernel, plain version, bound) and the forward.
 7. The differentiable block: ``fused_block_trainable`` through kernel 1 and
    kernel 2 at two RDUNet-32 block shapes, f32: loss and every gradient
@@ -25,7 +33,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the backward.
 8. Trains: ``SupervisedTrainer(engine="pallas")`` on RDUNet-32, 8 x 3 x 256^2
    super-batches, accumulation 4, AdamW + StepLR + clip 1.0, 3 steps in f32
-   and in bf16: 56 kernel launches per step, finite losses, and one f32 step
+   and in bf16: 56 kernel launches per step (all 56 on the tensor cores in
+   bf16, none in f32), finite losses, and one f32 step
    against the same step on ``engine="xla"`` (see ``compare_with_xla``).
    Times a step on each engine
    and splits a "pallas" step into forward blocks, glue, backward recompute,
@@ -34,6 +43,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
 failure, and when CUDA or the port's package is missing.
+
+With ``--profile`` it runs steps 1, 2 and then only ``profile_main``: the
+train phase's step, "pallas" and "xla", bf16 and f32, timed and traced with
+torch.profiler in a fresh process (device-busy time, idle share, the top
+kernels), ending with one JSON line of those numbers.
 """
 
 import concurrent.futures
@@ -53,6 +67,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # many of the 14 DenoisingBlocks run at each.
 SLICE_SHAPES = [((8, 32, 256, 256), 4), ((8, 64, 128, 128), 4),
                 ((8, 128, 64, 64), 4), ((8, 256, 32, 32), 2)]
+# The same blocks at micro-batch 2: a train step on 8 x 256^2 with accumulation 4.
+MB2_SHAPES = [((2, 32, 256, 256), 4), ((2, 64, 128, 128), 4),
+              ((2, 128, 64, 64), 4), ((2, 256, 32, 32), 2)]
 RAGGED_SHAPE = (2, 64, 37, 45)
 BORDER_SHAPE = (1, 32, 24, 24)
 # Kernel 2: the unpacked shapes of the RDUNet-32 blocks at c <= 128 (packed:
@@ -115,69 +132,121 @@ def bound_ms(shape, dtype_name, itemsize):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def tile_report(shape, itemsize):
-    """The kernel's tile at ``shape``, its grid size and the work it does per
-    useful FLOP (the halo levels are recomputed by every tile)."""
-    from vub_image_denoising_tpu_torch.ops.fused_block import pick_tile
+def tile_report(shape, dtype, packed=False):
+    """The kernel variant and tile a launch at ``shape`` takes on this card,
+    its grid size and the work it does per useful FLOP (every tile
+    recomputes its halo)."""
+    from vub_image_denoising_tpu_torch.ops.fused_block import (block_tile, block_weight_count,
+                                                               pick_tile, sm_count, tile_macs)
 
     n, c, h, w = shape
-    inner = c // 2
-    th, tw = pick_tile(inner, itemsize)
-    macs = [9 * (c + i * inner) * (inner if i < 3 else c) for i in range(4)]
-    done = sum(m * (th + 6 - 2 * i) * (tw + 6 - 2 * i) for i, m in enumerate(macs))
+    if packed:  # kernel 2 always runs on the CUDA cores
+        variant, (th, tw) = "cuda_core", pick_tile(c // 2, dtype.itemsize)
+    else:
+        variant, th, tw, _ = block_tile(dtype, n, c, h, w, sm_count("cuda"))
     blocks = n * -(-h // th) * -(-w // tw)
-    return f"tile {th}x{tw}, {blocks} thread blocks, x{done / (sum(macs) * th * tw):.2f} work"
+    work = tile_macs(c, th, tw) / (block_weight_count(c, c // 2) * th * tw)
+    return f"{variant} tile {th}x{tw}, {blocks} thread blocks, x{work:.2f} work"
+
+
+def held(torch, fb, y, x, params, ref32):
+    """Holds a kernel's output y on x against the plain version: f32 to
+    F32_TOL, bf16 to BF16_REL_TOL * max|y| of the plain f32 result.
+    Returns (max error vs plain at x's dtype, vs the reference, ok, tol)."""
+    err_same = (y.float() - fb.fused_denoising_block_plain(x, params).float()).abs().max().item()
+    if x.dtype == torch.float32:
+        ok = torch.allclose(y, ref32, atol=F32_TOL, rtol=F32_TOL)
+        return err_same, err_same, ok, f"atol=rtol={F32_TOL}"
+    scale = ref32.abs().max().item()
+    err_ref = (y.float() - fb.fused_denoising_block_plain(x.float(), params)).abs().max().item()
+    ok = err_ref <= BF16_REL_TOL * scale
+    return (err_same, err_ref, ok and bool(torch.isfinite(y.float()).all()),
+            f"<= {BF16_REL_TOL}*max|y| = {BF16_REL_TOL * scale:.4g} vs plain f32")
 
 
 def check_kernel(torch, device):
-    """Kernel vs plain version at every shape; returns per-shape records."""
-    from vub_image_denoising_tpu_torch.ops.fused_block import (
-        fused_denoising_block, fused_denoising_block_plain, pack_block_params)
+    """Kernel 1 vs its plain version at every shape; returns per-shape records.
+    Each bf16 launch at c in TC_WIDTHS must go to the tensor-core variant;
+    the CUDA-core kernel is also held, and timed, on the same bf16 inputs."""
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
 
     records = []
-    cases = [(s, "slice") for s, _ in SLICE_SHAPES] + [(RAGGED_SHAPE, "ragged"),
-                                                        (BORDER_SHAPE, "border")]
+    cases = ([(s, "slice") for s, _ in SLICE_SHAPES] + [(s, "microbatch") for s, _ in MB2_SHAPES]
+             + [(RAGGED_SHAPE, "ragged"), (BORDER_SHAPE, "border")])
     for shape, kind in cases:
         n, c, h, w = shape
         params = block_params(torch, c, seed=c, device=device)
         gen = torch.Generator(device=device).manual_seed(1)
         x32 = (torch.ones(shape, device=device) if kind == "border"
                else torch.randn(shape, generator=gen, device=device))
-        ref32 = fused_denoising_block_plain(x32, params)
+        ref32 = fb.fused_denoising_block_plain(x32, params)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             x = x32.to(dtype).contiguous(memory_format=torch.channels_last)
-            packed = pack_block_params(params, dtype, device)
-            y = fused_denoising_block(x, params, packed)
+            packed = fb.pack_block_params(params, dtype, device)
+            tc_before = fb.fused_denoising_block.tc_launches
+            y = fb.fused_denoising_block(x, params, packed)
             torch.cuda.synchronize()
-            plain = fused_denoising_block_plain(x, params)
-            err_same = (y.float() - plain.float()).abs().max().item()
-            scale = ref32.abs().max().item()
-            if dtype == torch.float32:
-                ok = torch.allclose(y, ref32, atol=F32_TOL, rtol=F32_TOL)
-                tol = f"atol=rtol={F32_TOL}"
-                err_ref = err_same
-            else:
-                ref = fused_denoising_block_plain(x.float(), params)
-                err_ref = (y.float() - ref).abs().max().item()
-                ok = err_ref <= BF16_REL_TOL * scale
-                tol = f"<= {BF16_REL_TOL}*max|y| = {BF16_REL_TOL * scale:.4g} vs plain f32"
-            print(f"check {kind} {shape} {name}: max_abs_err vs plain({name}) {err_same:.3e}, "
-                  f"vs reference {err_ref:.3e} ({tol}) -> {'ok' if ok else 'FAIL'}", flush=True)
+            variant = "tc" if fb.fused_denoising_block.tc_launches > tc_before else "cuda_core"
+            if variant != fb.block_variant(dtype, c):
+                fail(f"{shape} {name} launched the {variant} variant")
+            err_same, err_ref, ok, tol = held(torch, fb, y, x, params, ref32)
+            print(f"check {kind} {shape} {name} ({variant}): max_abs_err vs plain({name}) "
+                  f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}) -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             if not bool(torch.isfinite(y.float()).all()) or not ok:
                 fail(f"kernel disagrees with its plain version at {shape} {name}")
-            rec = {"shape": shape, "kind": kind, "dtype": name, "max_abs_err": err_same}
-            if kind == "slice":
-                iters = 5 if c == 32 else 10
-                rec["ms"] = cuda_ms(torch, lambda: fused_denoising_block(x, params, packed), iters)
-                rec["plain_ms"] = cuda_ms(torch, lambda: fused_denoising_block_plain(x, params), iters)
+            rec = {"shape": shape, "kind": kind, "dtype": name, "variant": variant,
+                   "max_abs_err": err_same}
+            if variant == "tc":  # the CUDA-core kernel on the same bf16 inputs, not counted
+                cuda_core = lambda: fb._launch("fused_denoising_block", fb._library(),
+                                               "fused_block", x, packed, n, h, w, c, c // 2)
+                y_cc = cuda_core()
+                torch.cuda.synchronize()
+                rec["cuda_core_max_abs_err"], err_ref, ok, tol = held(torch, fb, y_cc, x,
+                                                                      params, ref32)
+                print(f"check {kind} {shape} {name} (cuda_core): max_abs_err vs plain({name}) "
+                      f"{rec['cuda_core_max_abs_err']:.3e}, vs reference {err_ref:.3e} ({tol}) "
+                      f"-> {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"the CUDA-core kernel disagrees with its plain version at {shape} "
+                         f"{name}")
+            if kind in ("slice", "microbatch"):
+                iters = 5 if c == 32 and variant == "cuda_core" else 10
+                rec["ms"] = cuda_ms(torch, lambda: fb.fused_denoising_block(x, params, packed),
+                                    iters)
+                rec["plain_ms"] = cuda_ms(torch, lambda: fb.fused_denoising_block_plain(x, params),
+                                          iters)
                 rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, x.element_size())
-                print(f"time {shape} {name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-                      f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-                      f"{block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s; "
-                      f"{tile_report(shape, x.element_size())}", flush=True)
+                rec["tile"] = tile_report(shape, dtype)
+                extra = ""
+                if variant == "tc":
+                    rec["cuda_core_ms"] = cuda_ms(torch, cuda_core, 5 if c == 32 else 3)
+                    extra = f", CUDA-core kernel {rec['cuda_core_ms']:.4f} ms"
+                    if kind == "microbatch":
+                        rec["tile_sweep_ms"] = tile_sweep(torch, fb, x, packed)
+                print(f"time {kind} {shape} {name}: kernel {rec['ms']:.4f} ms, plain "
+                      f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                      f"({rec['bound_by']}), {block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s"
+                      f"{extra}; {rec['tile']}", flush=True)
             records.append(rec)
     return records
+
+
+def tile_sweep(torch, fb, x, packed):
+    """The tensor-core kernel forced to each tile it is built for at x's
+    width: checks pick_tile_tc's choice against the alternatives."""
+    n, c, h, w = x.shape
+    out = {}
+    for th, tw in fb.tc_tiles(c):
+        tile = (th, tw, fb.tc_smem_bytes(c, th, tw))
+        out[f"{th}x{tw}"] = cuda_ms(torch, lambda: fb._launch(
+            "fused_denoising_block", fb._tc_library(), "fused_block_tc", x, packed,
+            n, h, w, c, c // 2, tile), 10)
+    picked = fb.pick_tile_tc(n, c, h, w, fb.sm_count(x.device))
+    print(f"tile sweep {tuple(x.shape)} bfloat16 (picked {picked}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()), flush=True)
+    return out
 
 
 def block_flops_tflops(shape, ms):
@@ -259,19 +328,25 @@ def serve_main_path(torch, ck):
     try:
         for _, service, _, _ in runs.values():
             service.reset_stats()
-        fused_denoising_block.launches = 0
+        fused_denoising_block.launches = fused_denoising_block.tc_launches = 0
         outs = {bf16: drive(base, images) for bf16, (_, _, _, base) in runs.items()}
         launches = fused_denoising_block.launches
+        tc_launches = fused_denoising_block.tc_launches
         batches = sum(s.stats["batches"] for _, s, _, _ in runs.values())
+        bf16_batches = runs[True][1].stats["batches"]
         for bf16, (results, health) in outs.items():
             b = health["batching"]
             print(f"served {'bf16' if bf16 else 'f32'}: {b}, device {health['devices']}, "
                   f"latency {health['latency']}", flush=True)
             if b["requests"] != 9 or b["rejected"] != 0:
                 fail(f"healthz batching counters wrong: {b}")
-        print(f"main path: {launches} kernel launches for {batches} dispatched batches", flush=True)
+        print(f"main path: {launches} kernel launches for {batches} dispatched batches; "
+              f"{tc_launches} tensor-core launches for {bf16_batches} bf16 batches", flush=True)
         if launches != 14 * batches or batches == 0:
             fail(f"expected 14 launches per batch, got {launches} for {batches}")
+        if tc_launches != 14 * bf16_batches or bf16_batches == 0:
+            fail(f"expected 14 tensor-core launches per bf16 batch, got {tc_launches} "
+                 f"for {bf16_batches}")
 
         # served outputs vs references, on the same 8 images
         x = np.stack(images).astype(np.float32) / 255.0 * 2.0 - 1.0
@@ -294,7 +369,7 @@ def serve_main_path(torch, ck):
             fail("served f32 output disagrees with the plain forward")
         if err16 > SERVED_BF16_REL_TOL * scale:
             fail("served bf16 output too far from f32")
-        return launches
+        return {"all": launches, "tc": tc_launches}
     finally:
         for server, service, _, _ in runs.values():
             server.shutdown()
@@ -326,18 +401,45 @@ def time_forward(torch, ck):
     return out
 
 
+LIBRARIES = ("fused_block", "fused_block_tc", "fused_block_packed")
+
+
 def build_kernels():
-    """Build both kernels' libraries at once (one nvcc each)."""
+    """Build the three kernel libraries at once (one nvcc each) and print
+    each kernel's registers, shared memory and spills as ptxas reports them."""
+    import re
+
     from vub_image_denoising_tpu_torch.ops import cuda_build
-    from vub_image_denoising_tpu_torch.ops.fused_block import _library, _packed_library
+    from vub_image_denoising_tpu_torch.ops.fused_block import (_library, _packed_library,
+                                                               _tc_library)
 
     t0 = time.monotonic()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(_library), pool.submit(_packed_library)]:
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        for fut in [pool.submit(f) for f in (_library, _tc_library, _packed_library)]:
             fut.result()
-    print(f"build fused_block.cu + fused_block_packed.cu: {time.monotonic() - t0:.1f} s wall "
-          f"(nvcc {cuda_build.build_seconds['fused_block']:.1f} s and "
-          f"{cuda_build.build_seconds['fused_block_packed']:.1f} s)", flush=True)
+    print(f"build {', '.join(l + '.cu' for l in LIBRARIES)}: {time.monotonic() - t0:.1f} s wall "
+          "(nvcc " + ", ".join(f"{cuda_build.build_seconds[l]:.1f} s" for l in LIBRARIES) + ")",
+          flush=True)
+    ptxas = {}
+    for lib in LIBRARIES:
+        for entry, body in re.findall(r"Compiling entry function '([^']+)' for 'sm_90a'\n(.*?)"
+                                      r"(?=ptxas info    : Compiling|\Z)",
+                                      cuda_build.ptxas_log[lib], re.S):
+            kernel = re.search(r"(?<=\d)(fused_block\w*?_kernel)I(.*?)Ev9BlockArgs", entry)
+            if kernel:
+                args = kernel.group(2)
+                args = (",".join(re.findall(r"Li(\d+)E", args))
+                        or ("bf16" if "bfloat16" in args else "f32"))
+                name = f"{kernel.group(1)}<{args}>"
+            else:
+                name = entry
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+            ptxas[name] = {"registers": int(regs.group(1)) if regs else None,
+                           "spill_stores": int(spill.group(1)) if spill else None,
+                           "spill_loads": int(spill.group(2)) if spill else None}
+            print(f"ptxas {name}: {ptxas[name]}", flush=True)
+    return ptxas
 
 
 def check_packed_kernel(torch, device):
@@ -392,7 +494,7 @@ def check_packed_kernel(torch, device):
                 print(f"time packed {shape} {name}: kernel {rec['ms']:.4f} ms, plain "
                       f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
                       f"({rec['bound_by']}), {block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s; "
-                      f"{tile_report(shape, xq.element_size())}", flush=True)
+                      f"{tile_report(shape, xq.dtype, packed=True)}", flush=True)
             records.append(rec)
     return records
 
@@ -452,13 +554,8 @@ def make_trainer(torch, init, engine, dtype):
     return trainer, trainer.init(steps_per_epoch=TRAIN_STEPS)
 
 
-def train_main_path(torch, device):
-    """SupervisedTrainer(engine="pallas") steps in f32 and bf16, checked;
-    returns (kernel-1 launches of the run, per-engine step times, breakdowns)."""
-    from vub_image_denoising_tpu_torch.models import RDUNet
-    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
-
-    init = RDUNet(3, BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict()
+def make_batches(torch, device):
+    """TRAIN_STEPS synthetic (noisy, clean) super-batches from a seed."""
     gen = torch.Generator(device=device).manual_seed(2)
     batches = []
     for _ in range(TRAIN_STEPS):
@@ -466,31 +563,47 @@ def train_main_path(torch, device):
                            device=device) * 2 - 1
         batches.append((clean + SIGMA * torch.randn(clean.shape, generator=gen, device=device),
                         clean))
+    return batches
+
+
+def train_main_path(torch, device):
+    """SupervisedTrainer(engine="pallas") steps in f32 and bf16, checked;
+    returns (kernel-1 launches of the run, all and tensor-core, per-engine
+    step times, breakdowns)."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
+
+    init = RDUNet(3, BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict()
+    batches = make_batches(torch, device)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
 
-    fused_denoising_block.launches = 0
+    fused_denoising_block.launches = fused_denoising_block.tc_launches = 0
     after_one, first_loss = None, None
     for name, dtype in dtypes.items():
         trainer, state = make_trainer(torch, init, "pallas", dtype)
         for i, (noisy, clean) in enumerate(batches):
             before = fused_denoising_block.launches
+            tc_before = fused_denoising_block.tc_launches
             state, loss = trainer.train_step(state, noisy, clean)
             launches = fused_denoising_block.launches - before
+            tc = fused_denoising_block.tc_launches - tc_before
             print(f"train pallas {name} step {i}: loss {loss.item():.6f}, {launches} kernel "
-                  f"launches", flush=True)
-            if not bool(torch.isfinite(loss)) or launches != 14 * ACCUMULATION:
-                fail(f"train step {i} ({name}): loss {loss.item()}, {launches} launches")
+                  f"launches, {tc} on the tensor cores", flush=True)
+            want_tc = 14 * ACCUMULATION if dtype == torch.bfloat16 else 0
+            if not bool(torch.isfinite(loss)) or launches != 14 * ACCUMULATION or tc != want_tc:
+                fail(f"train step {i} ({name}): loss {loss.item()}, {launches} launches, "
+                     f"{tc} tensor-core launches (want {want_tc})")
             if name == "f32" and i == 0:
                 after_one = {k: v.detach().clone() for k, v in state.params.items()}
                 first_loss = loss.item()
-    launches = fused_denoising_block.launches
+    launches = {"all": fused_denoising_block.launches, "tc": fused_denoising_block.tc_launches}
     compare_with_xla(torch, init, batches[0], after_one, first_loss)
 
     step_ms, breakdowns = {}, {}
     for name, dtype in dtypes.items():
         for engine in ("pallas", "xla", "flax"):
             trainer, state = make_trainer(torch, init, engine, dtype)
-            ms = cuda_ms(torch, lambda: trainer.train_step(state, *batches[0]), 2)
+            ms = cuda_ms(torch, lambda: trainer.train_step(state, *batches[0]), 4, warmup=2)
             step_ms[f"{engine}_{name}"] = ms
             print(f"train step RDUNet-32 {TRAIN_BATCH}x256x256 acc {ACCUMULATION} {engine} "
                   f"{name}: {ms:.2f} ms", flush=True)
@@ -586,8 +699,72 @@ def step_breakdown(torch, trainer, state, batch, step_ms):
     return out
 
 
+def trace_steps(torch, fn, steps):
+    """``steps`` calls of fn under torch.profiler: wall and device-busy ms
+    per step, the idle share of the traced window (1 - busy / wall), and
+    the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if (us > 0 and "CUDA" in str(ev.device_type)
+                and not getattr(ev, "is_user_annotation", False)):  # e.g. Optimizer.step spans
+            kernels[ev.key] = (us / 1e3 / steps, ev.count // steps)
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms_per_step": wall_ms / steps, "device_busy_ms_per_step": busy,
+            "idle_share": 1 - busy / (wall_ms / steps),
+            "top_kernels": [{"name": k[:120], "ms_per_step": ms, "launches_per_step": n}
+                            for k, (ms, n) in top]}
+
+
+def profile_main(torch, device):
+    """``--profile``: where one train step of the train phase (same trainer,
+    same first batch) spends the card's time, in a process that runs
+    nothing else.  For bf16 then f32, engines "pallas" and "xla": step times
+    by CUDA events in turns (pallas, xla, xla, pallas), then TRAIN_STEPS
+    traced steps of each.  Prints one JSON line of those numbers."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+
+    init = RDUNet(3, BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict()
+    batch = make_batches(torch, device)[0]
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fns = {}
+        for engine in ("pallas", "xla"):
+            trainer, state = make_trainer(torch, init, engine, dtype)
+            fns[engine] = lambda t=trainer, st=state: t.train_step(st, *batch)
+        times = {e: [] for e in fns}
+        for e in ("pallas", "xla", "xla", "pallas"):
+            times[e].append(cuda_ms(torch, fns[e], 3))
+        for e, fn in fns.items():
+            rec = {"step_ms_runs": times[e], **trace_steps(torch, fn, TRAIN_STEPS)}
+            out[f"{e}_{name}"] = rec
+            print(f"profile {e} {name}: step {', '.join(f'{t:.2f}' for t in times[e])} ms (CUDA "
+                  f"events); traced wall {rec['wall_ms_per_step']:.2f} ms, device busy "
+                  f"{rec['device_busy_ms_per_step']:.2f} ms, idle share {rec['idle_share']:.3f}",
+                  flush=True)
+            for k in rec["top_kernels"]:
+                print(f"    {k['ms_per_step']:9.3f} ms  x{k['launches_per_step']:<4d} {k['name']}",
+                      flush=True)
+    print(json.dumps({"profile": out}), flush=True)
+
+
 def main():
     import torch
+
+    args = sys.argv[1:]
+    if args not in ([], ["--profile"]):
+        fail(f"usage: python3 chip_smoke.py [--profile]  (got {args})")
 
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -610,7 +787,10 @@ def main():
     enable_strict_precision()
     device = torch.device("cuda")
 
-    build_kernels()
+    ptxas = build_kernels()
+    if args:
+        profile_main(torch, device)
+        return
     records = check_kernel(torch, device)
     packed_records = check_packed_kernel(torch, device)
 
@@ -623,14 +803,15 @@ def main():
     trainable = check_trainable(torch, device)
     train_launches, step_ms, breakdowns = train_main_path(torch, device)
 
-    def per_forward(recs, shapes):
+    def per_forward(recs, shapes, dtype="bfloat16"):
         return [(r, cnt) for r in recs for s, cnt in shapes
-                if r["kind"] == "slice" and r["shape"] == s and r["dtype"] == "bfloat16"]
+                if r["kind"] in ("slice", "microbatch") and r["shape"] == s
+                and r["dtype"] == dtype]
 
-    def timing(recs, shapes):
-        rows = per_forward(recs, shapes)
+    def timing(recs, shapes, dtype="bfloat16"):
+        rows = per_forward(recs, shapes, dtype)
         return {
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "max_abs_err": max(r["max_abs_err"] for r in recs if r["dtype"] == dtype),
             "ms": sum(r["ms"] * cnt for r, cnt in rows),
             "plain_ms": sum(r["plain_ms"] * cnt for r, cnt in rows),
             "bound_ms": sum(r["bound_ms"] * cnt for r, cnt in rows),
@@ -643,11 +824,32 @@ def main():
         {
             "name": "fused_denoising_block",
             "route": "cuda",
-            "source": "vub_image_denoising_tpu_torch/csrc/fused_block.cu",
-            "replaces": "vub_image_denoising_tpu/ops/fused_block.py:192",
-            "launches": train_launches,
+            "source": "vub_image_denoising_tpu_torch/csrc/fused_block_tc.cu",
+            "replaces": "vub_image_denoising_tpu/ops/fused_block.py:193",
+            "launches": train_launches["all"],
             **timing(records, SLICE_SHAPES),
-            "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, bf16",
+            "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, bf16 "
+                    "(tensor-core variant)",
+            "variants": [
+                {"variant": "tc", "dtype": "bfloat16",
+                 "source": "vub_image_denoising_tpu_torch/csrc/fused_block_tc.cu",
+                 "launches": train_launches["tc"], **timing(records, SLICE_SHAPES),
+                 "cuda_core_bf16_ms": sum(r["cuda_core_ms"] * cnt for r, cnt in
+                                          per_forward(records, SLICE_SHAPES)),
+                 "cuda_core_bf16_max_abs_err": max(r["cuda_core_max_abs_err"] for r in records
+                                                   if "cuda_core_max_abs_err" in r),
+                 "microbatch_ms": timing(records, MB2_SHAPES)["ms"]},
+                {"variant": "cuda_core", "dtype": "float32",
+                 "source": "vub_image_denoising_tpu_torch/csrc/fused_block.cu",
+                 "launches": train_launches["all"] - train_launches["tc"],
+                 **timing(records, SLICE_SHAPES, "float32"),
+                 "microbatch_ms": timing(records, MB2_SHAPES, "float32")["ms"]},
+            ],
+            "per_shape": [{k: r[k] for k in ("shape", "kind", "dtype", "variant", "ms",
+                                             "plain_ms", "bound_ms", "tile")}
+                          | {k: r[k] for k in ("cuda_core_ms", "cuda_core_max_abs_err",
+                                               "tile_sweep_ms") if k in r}
+                          for r in records if "ms" in r],
             "launches_by_path": {"train": train_launches, "serve": serve_launches,
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
@@ -659,7 +861,7 @@ def main():
             "name": "fused_denoising_block_packed",
             "route": "cuda",
             "source": "vub_image_denoising_tpu_torch/csrc/fused_block_packed.cu",
-            "replaces": "vub_image_denoising_tpu/ops/fused_block.py:359",
+            "replaces": "vub_image_denoising_tpu/ops/fused_block.py:360",
             "launches": trainable["fused_denoising_block_packed"],
             **timing(packed_records, PACKED_SHAPES),
             "work": "the 12 blocks at c <= 128 of one RDUNet-32 forward, batch 8, "
@@ -669,6 +871,7 @@ def main():
             "card": card,
         },
     ]
+    kernels[0]["ptxas"] = ptxas
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

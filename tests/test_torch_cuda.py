@@ -195,3 +195,82 @@ def test_cuda_rdunet_backward_runs_14_kernels(cuda):
     assert fb.fused_denoising_block.launches == before + 14
     for k, p in gpu.named_parameters():
         torch.testing.assert_close(p.grad.cpu(), want[k], rtol=1e-3, atol=1e-5, msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core variant of kernel 1 (csrc/fused_block_tc.cu): bf16 at
+# c in TC_WIDTHS.  Same tolerance as every bf16 case above.
+# ---------------------------------------------------------------------------
+
+def _bf16_input(shape, device, seed=1):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 37, 45), (1, 64, 20, 19), (1, 128, 13, 11),
+                                   (1, 256, 9, 11), (2, 256, 32, 32)])
+def test_cuda_tc_kernel_matches_plain(cuda, shape):
+    """Ragged images at every RDUNet-32 width, and the micro-batch-2 shape of
+    a train step at c = 256 (4x4 tiles); one tensor-core launch each."""
+    params = _block(shape[1], cuda)
+    x = _bf16_input(shape, cuda)
+    before, tc_before = fb.fused_denoising_block.launches, fb.fused_denoising_block.tc_launches
+    y = fb.fused_denoising_block(x, params)
+    torch.cuda.synchronize()
+    assert fb.fused_denoising_block.launches == before + 1
+    assert fb.fused_denoising_block.tc_launches == tc_before + 1
+    _check(y, x, params)
+
+
+@pytest.mark.parametrize("c,tile", [(c, t) for c in fb.TC_WIDTHS for t in fb.tc_tiles(c)])
+def test_cuda_tc_kernel_every_tile(cuda, c, tile):
+    """Each (c, tile) the kernel is built for, forced, on a ragged image."""
+    params = _block(c, cuda, seed=6)
+    x = _bf16_input((1, c, 19, 13), cuda, seed=7)
+    y = fb._launch("fused_denoising_block", fb._tc_library(), "fused_block_tc", x,
+                   fb.pack_block_params(params, torch.bfloat16, cuda), 1, 19, 13, c, c // 2,
+                   (*tile, fb.tc_smem_bytes(c, *tile)))
+    torch.cuda.synchronize()
+    _check(y, x, params)
+
+
+def test_cuda_tc_kernel_border_padding(cuda):
+    params = _block(32, cuda, seed=2)
+    x = torch.ones(1, 32, 24, 24, device=cuda, dtype=torch.bfloat16)
+    tc_before = fb.fused_denoising_block.tc_launches
+    y = fb.fused_denoising_block(x.contiguous(memory_format=torch.channels_last), params)
+    torch.cuda.synchronize()
+    assert fb.fused_denoising_block.tc_launches == tc_before + 1
+    _check(y, x, params)
+    assert not torch.allclose(y[0, :, 0, 12].float(), y[0, :, 12, 12].float(), atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 0), ("bfloat16", 16, 0),
+                                         ("bfloat16", 512, 0), ("bfloat16", 64, 1)])
+def test_cuda_variant_counters(cuda, dtype, c, tc):
+    """f32, and bf16 outside TC_WIDTHS, launch the CUDA-core kernel; only
+    bf16 at c in TC_WIDTHS counts as a tensor-core launch.  Each output is
+    held against the plain version."""
+    params = _block(c, cuda)
+    x = torch.randn(1, c, 10, 12, device=cuda).to(getattr(torch, dtype)).contiguous(
+        memory_format=torch.channels_last)
+    before, tc_before = fb.fused_denoising_block.launches, fb.fused_denoising_block.tc_launches
+    y = fb.fused_denoising_block(x, params)
+    torch.cuda.synchronize()
+    assert fb.fused_denoising_block.launches == before + 1
+    assert fb.fused_denoising_block.tc_launches == tc_before + tc
+    _check(y, x, params)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 37, 45), (1, 64, 20, 19), (1, 256, 9, 11)])
+def test_cuda_core_kernel_bf16_at_tc_widths(cuda, shape):
+    """The CUDA-core kernel's bf16 build, forced at widths the wrapper sends
+    to the tensor cores: the same arithmetic serves bf16 at every other width."""
+    n, c, h, w = shape
+    params = _block(c, cuda)
+    x = _bf16_input(shape, cuda)
+    y = fb._launch("fused_denoising_block", fb._library(), "fused_block", x,
+                   fb.pack_block_params(params, torch.bfloat16, cuda), n, h, w, c, c // 2)
+    torch.cuda.synchronize()
+    _check(y, x, params)

@@ -1,7 +1,7 @@
 // Fused DenoisingBlock for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel `fused_denoising_block`
-// (vub_image_denoising_tpu/ops/fused_block.py:192).  It computes
+// (vub_image_denoising_tpu/ops/fused_block.py:193).  It computes
 //   o0 = PReLU(conv0(x)), o1 = PReLU(conv1([x,o0])), o2 = PReLU(conv2([x,o0,o1])),
 //   y  = PReLU(conv3([x,o0,o1,o2])) + x
 // with every conv 3x3 SAME, and keeps o0..o2 out of device memory (shared

@@ -2,7 +2,7 @@
 // plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel `fused_denoising_block_packed`
-// (vub_image_denoising_tpu/ops/fused_block.py:359) and keeps its contract:
+// (vub_image_denoising_tpu/ops/fused_block.py:360) and keeps its contract:
 // x and y are even-packed (n, h/2, w/2, 4c), packed channel (a*2+b)*c + k
 // holding image pixel (2I+a, 2J+b); the block is the one of fused_block.cu,
 // so unpack2x2(y) equals kernel 1 on unpack2x2(x).

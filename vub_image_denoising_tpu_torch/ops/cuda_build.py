@@ -18,12 +18,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _locks_guard = threading.Lock()
 _locks = {}  # library name -> lock; libraries build in parallel, each once
 _loaded = {}
 build_seconds = {}  # library name -> seconds its nvcc run took (0 when cached)
+ptxas_log = {}  # library name -> nvcc's stderr: ptxas registers, shared memory, spills
 
 
 def _nvcc() -> str:
@@ -57,8 +58,11 @@ def load_library(name: str, source: str, headers=()) -> ctypes.CDLL:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
+            lib_path.with_suffix(".ptxas.txt").write_text(proc.stderr)
             os.replace(tmp, lib_path)
         build_seconds[name] = time.monotonic() - t0
+        log = lib_path.with_suffix(".ptxas.txt")
+        ptxas_log[name] = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(lib_path))
         _loaded[name] = lib
         return lib

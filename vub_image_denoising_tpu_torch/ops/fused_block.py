@@ -1,7 +1,7 @@
 """The whole DenoisingBlock as one Hopper kernel, with its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``fused_denoising_block``
-(``vub_image_denoising_tpu/ops/fused_block.py:192``).  What it computes, with
+(``vub_image_denoising_tpu/ops/fused_block.py:193``).  What it computes, with
 every conv a 3x3 SAME conv with bias:
 
     o0 = PReLU(conv0(x))
@@ -14,11 +14,19 @@ f32, one cast to the compute dtype (x's dtype, f32 or bf16), PReLU in the
 compute dtype, o0..o2 kept in it, residual added in it.  Conv weights are cast
 to the compute dtype, bias and alpha stay f32 until used.
 
-The kernel (``csrc/fused_block.cu``) gives each thread block one (image,
-th x tw output tile) and keeps o0..o2 in shared memory over a halo pyramid of
-th+6 -> th+4 -> th+2 -> th rows; o0..o2 never reach device memory.  The tile
-is chosen per width so that the three intermediates fit in shared memory
-(``pick_tile``).  Bound on an H100 SXM: 85.5*c^2*H*W*N FLOP per launch
+Two kernels compute it; the choice between them is static (``block_variant``):
+
+- bf16 with c in ``TC_WIDTHS`` (32, 64, 128, 256: every RDUNet-32 width)
+  launches ``csrc/fused_block_tc.cu``: an implicit GEMM per level on the
+  tensor cores (``mma.sync`` bf16 -> f32, operands staged with ``cp.async``),
+  with a grid-aware tile (``pick_tile_tc``);
+- f32 (exact f32 parity rules out TF32), and bf16 at any other width,
+  launches ``csrc/fused_block.cu`` on the CUDA cores, tile ``pick_tile``.
+
+Both give each thread block one (image, th x tw output tile) and keep o0..o2
+in shared memory over a halo pyramid of th+6 -> th+4 -> th+2 -> th rows;
+o0..o2 never reach device memory.  A build or launch error raises; nothing
+falls back.  Bound on an H100 SXM: 85.5*c^2*H*W*N FLOP per launch
 (5.74 GFLOP per 256^2 image per block at c = 32; about 46 us at batch 8 at the
 989 TFLOP/s bf16 dense peak, against about 20 us for the 67 MB of bf16 x and y
 at 3.35 TB/s), so it is compute-bound.
@@ -63,6 +71,80 @@ def pick_tile(inner: int, itemsize: int):
             if smem_bytes(inner, th, tw, itemsize) <= limit:
                 return th, tw
     raise ValueError(f"no tile fits {inner} inner channels in shared memory")
+
+
+# The tensor-core kernel (csrc/fused_block_tc.cu).  Its shared memory holds
+# o0..o2 (a position's channels padded by 16 bytes), x in 32-channel slabs
+# over the (th+8) x (tw+8) region (two buffers when c > 32), and two weight
+# stages of 32 K rows (3 taps when N <= 64, else 1) of N columns + 16 bytes.
+TC_WIDTHS = (32, 64, 128, 256)
+TC_TILES = ((16, 16), (8, 8), (4, 4))
+
+
+def tc_smem_bytes(c: int, th: int, tw: int) -> int:
+    """Shared memory of the tensor-core kernel for one (th x tw) tile;
+    mirrors ``tc_smem_bytes`` in ``csrc/fused_block_tc.cu``."""
+    positions = (th + 6) * (tw + 6) + (th + 4) * (tw + 4) + (th + 2) * (tw + 2)
+    x_bufs = 2 if c > 32 else 1
+
+    def stage(n):
+        return (3 if n <= 64 else 1) * 32 * (n * 2 + 16)
+
+    return (positions * (c + 16) + x_bufs * (th + 8) * (tw + 8) * 80
+            + 2 * max(stage(c // 2), stage(c)))
+
+
+def tc_tiles(c: int):
+    """The tiles the tensor-core kernel is built for at width ``c``."""
+    return [t for t in TC_TILES if tc_smem_bytes(c, *t) <= _SMEM_MAX]
+
+
+def tile_macs(c: int, th: int, tw: int) -> int:
+    """Multiply-adds one thread block executes, halo levels included."""
+    inner = c // 2
+    return sum(9 * (c + i * inner) * (inner if i < 3 else c)
+               * (th + 6 - 2 * i) * (tw + 6 - 2 * i) for i in range(4))
+
+
+def pick_tile_tc(n: int, c: int, h: int, w: int, sms: int):
+    """The tensor-core kernel's tile for an (n, c, h, w) input on a card
+    with ``sms`` streaming multiprocessors (``sm_count``).
+
+    Weighs waves over the SMs against halo recompute: a tile whose
+    blocks fit ``per_sm`` to an SM (1 or 2, by shared memory) costs
+    ceil(blocks / (sms * per_sm)) waves, each as long as ``per_sm`` blocks'
+    multiply-adds run back to back on one SM (fewer when one wave does not
+    fill every SM twice).  The cheapest tile wins; ties go to the larger."""
+    best, best_cost = None, None
+    for th, tw in tc_tiles(c):
+        blocks = n * -(-h // th) * -(-w // tw)
+        per_sm = 2 if tc_smem_bytes(c, th, tw) <= _SMEM_TWO_PER_SM else 1
+        waves = -(-blocks // (sms * per_sm))
+        cost = waves * min(per_sm, -(-blocks // sms)) * tile_macs(c, th, tw)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = (th, tw), cost
+    return best
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA device ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def block_variant(dtype, c: int) -> str:
+    """Which kernel a CUDA input of this dtype and width launches: ``"tc"``
+    (tensor cores, bf16 at c in TC_WIDTHS) or ``"cuda_core"`` (the rest)."""
+    return "tc" if dtype == torch.bfloat16 and c in TC_WIDTHS else "cuda_core"
+
+
+def block_tile(dtype, n: int, c: int, h: int, w: int, sms: int):
+    """(variant, th, tw, shared-memory bytes) of a launch at this input on a
+    card with ``sms`` SMs."""
+    if block_variant(dtype, c) == "tc":
+        th, tw = pick_tile_tc(n, c, h, w, sms)
+        return "tc", th, tw, tc_smem_bytes(c, th, tw)
+    th, tw = pick_tile(c // 2, dtype.itemsize)
+    return "cuda_core", th, tw, smem_bytes(c // 2, th, tw, dtype.itemsize)
 
 
 def block_weight_count(c: int, inner: int) -> int:
@@ -115,6 +197,12 @@ def _library():
     return lib
 
 
+def _tc_library():
+    lib = load_library("fused_block_tc", "fused_block_tc.cu", ("fused_block.cuh",))
+    _declare(lib, "fused_block_tc")
+    return lib
+
+
 def _packed_library():
     lib = load_library("fused_block_packed", "fused_block_packed.cu", ("fused_block.cuh",))
     _declare(lib, "fused_block_packed")
@@ -158,18 +246,21 @@ def _check_kernel_weights(name, weights, x, c, inner):
         raise ValueError(f"{name}: kernel weights are not pack_block_params of this block")
 
 
-def _launch(name, lib, prefix, x, weights, n, h, w, c, inner):
-    """Allocate y like x and launch the block kernel over the (h x w) image."""
+def _launch(name, lib, prefix, x, weights, n, h, w, c, inner, tile=None):
+    """Allocate y like x and launch the block kernel over the (h x w) image;
+    ``tile`` is (th, tw, shared-memory bytes), by default ``pick_tile``'s."""
     wpk, ba = weights
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    th, tw = pick_tile(inner, x.element_size())
+    if tile is None:
+        th, tw = pick_tile(inner, x.element_size())
+        tile = (th, tw, smem_bytes(inner, th, tw, x.element_size()))
+    th, tw, smem = tile
     with torch.cuda.device(x.device):
         rc = getattr(lib, f"{prefix}_launch")(
             x.data_ptr(), wpk.data_ptr(), ba.data_ptr(), y.data_ptr(),
-            n, h, w, c, inner, th, tw, int(x.dtype == torch.bfloat16),
-            smem_bytes(inner, th, tw, x.element_size()),
+            n, h, w, c, inner, th, tw, int(x.dtype == torch.bfloat16), smem,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
@@ -182,11 +273,16 @@ def fused_denoising_block(x, params, packed=None):
     """Apply one DenoisingBlock to ``x`` (N, C, H, W).
 
     On a CPU tensor this is ``fused_denoising_block_plain``.  On a CUDA tensor
-    it launches the kernel: ``x`` must be f32 or bf16 in channels_last memory;
-    ``packed`` is ``pack_block_params(params, x.dtype, x.device)``, which
-    callers cache (it is built here when omitted).  The kernel has no backward:
-    call it under ``torch.no_grad()`` or ``torch.inference_mode()``, or train
-    through ``models.fused_apply.fused_block_trainable``."""
+    it launches a kernel, by this static rule (``block_variant``): bf16 with
+    c in ``TC_WIDTHS`` launches the tensor-core kernel
+    (``csrc/fused_block_tc.cu``, counted in ``.tc_launches``); f32, and bf16
+    at other widths, the CUDA-core kernel (``csrc/fused_block.cu``).  Every
+    launch counts in ``.launches``.  ``x`` must be f32 or bf16 in
+    channels_last memory; ``packed`` is ``pack_block_params(params, x.dtype,
+    x.device)``, which callers cache (it is built here when omitted).  The
+    kernels have no backward: call this under ``torch.no_grad()`` or
+    ``torch.inference_mode()``, or train through
+    ``models.fused_apply.fused_block_trainable``."""
     if x.device.type == "cpu":
         return fused_denoising_block_plain(x, params)
     _check_input("fused_denoising_block", x, params)
@@ -202,12 +298,20 @@ def fused_denoising_block(x, params, packed=None):
     if packed is None:
         packed = pack_block_params(params, x.dtype, x.device)
     _check_kernel_weights("fused_denoising_block", packed, x, c, inner)
-    y = _launch("fused_denoising_block", _library(), "fused_block", x, packed, n, h, w, c, inner)
+    variant, th, tw, smem = block_tile(x.dtype, n, c, h, w, sm_count(x.device))
+    if variant == "tc":
+        y = _launch("fused_denoising_block", _tc_library(), "fused_block_tc", x, packed,
+                    n, h, w, c, inner, (th, tw, smem))
+        fused_denoising_block.tc_launches += 1
+    else:
+        y = _launch("fused_denoising_block", _library(), "fused_block", x, packed,
+                    n, h, w, c, inner, (th, tw, smem))
     fused_denoising_block.launches += 1
     return y
 
 
-fused_denoising_block.launches = 0  # kernel launches since the last reset
+fused_denoising_block.launches = 0  # kernel launches (both variants) since the last reset
+fused_denoising_block.tc_launches = 0  # of those, tensor-core launches
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +412,7 @@ def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
     """Apply one DenoisingBlock to an even-packed ``xq`` (N, 4C, H/2, W/2).
 
     Replaces the Pallas TPU kernel ``fused_denoising_block_packed``
-    (``vub_image_denoising_tpu/ops/fused_block.py:359``), with its contract:
+    (``vub_image_denoising_tpu/ops/fused_block.py:360``), with its contract:
     ``unpack2x2(fused_denoising_block_packed(pack2x2(x),
     pack_block_params_packed(p))) == fused_denoising_block(x, p)``.
 
