@@ -6,17 +6,18 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the three DenoisingBlock libraries from ``csrc/`` with nvcc, in
    parallel: kernel 1 on the CUDA cores (NHWC, f32 and bf16 outside
-   TC_WIDTHS), kernel 1 on the tensor cores (bf16, ``fused_block_tc.cu``),
-   and kernel 2 (2x2 even-packed); prints each kernel's ptxas registers and
-   spills.
+   TC_WIDTHS), kernel 1 on the tensor cores (bf16, and f32 as 3xTF32,
+   ``fused_block_tc.cu``), and kernel 2 (2x2 even-packed); prints each
+   kernel's ptxas registers and spills.
 3. Holds kernel 1 against its plain PyTorch version on the card at every
    block shape of an RDUNet-32 forward on 8 x 256^2 images, at the four
    micro-batch-2 shapes of a train step, on a ragged shape and on a constant
-   input (border case), in f32 (TF32 off, CUDA cores) and bf16 (tensor
-   cores; each bf16 launch must be a tensor-core launch).  The CUDA-core
-   kernel is held in bf16 on the same inputs too, since it serves bf16 at
-   other widths.  Times both dtypes and both bf16 kernels at the batch-8 and
-   micro-batch shapes beside each shape's tile and thread blocks.
+   input (border case), in f32 (to F32_TOL, TF32 off in the plain version)
+   and bf16; each launch at these widths must be a tensor-core launch.  The
+   CUDA-core kernel is held on the same inputs in both dtypes too, since it
+   serves them at other widths.  Times both kernels in both dtypes at the
+   batch-8 and micro-batch shapes beside each shape's bound, tile and thread
+   blocks, and sweeps the tensor-core tiles at the micro-batch shapes.
 4. Holds kernel 2 against its plain version at the packed shapes of the
    RDUNet-32 blocks at c <= 128, a ragged and a border case, f32 and bf16,
    and, unpacked, against kernel 1 (its contract).
@@ -24,8 +25,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    .pth) through the port's BatchingDenoiseService over HTTP, in bf16 and in
    f32: 8 concurrent raw 256x256x3 requests, one PNG request and /healthz
    each.  Checks the responses, that every dispatched batch launched the
-   kernel 14 times (on the tensor cores for every bf16 batch), and that the
-   served f32 output matches the plain-version forward on the CPU.
+   kernel 14 times, all on the tensor cores, and that the served f32 output
+   matches the plain-version forward on the CPU.
 6. Times each block shape (kernel, plain version, bound) and the forward.
 7. The differentiable block: ``fused_block_trainable`` through kernel 1 and
    kernel 2 at two RDUNet-32 block shapes, f32: loss and every gradient
@@ -33,8 +34,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    the backward.
 8. Trains: ``SupervisedTrainer(engine="pallas")`` on RDUNet-32, 8 x 3 x 256^2
    super-batches, accumulation 4, AdamW + StepLR + clip 1.0, 3 steps in f32
-   and in bf16: 56 kernel launches per step (all 56 on the tensor cores in
-   bf16, none in f32), finite losses, and one f32 step
+   and in bf16: 56 kernel launches per step, all 56 on the tensor cores in
+   both dtypes, finite losses, and one f32 step
    against the same step on ``engine="xla"`` (see ``compare_with_xla``).
    Times a step on each engine
    and splits a "pallas" step into forward blocks, glue, backward recompute,
@@ -84,11 +85,12 @@ GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 1e-4, 1e-5, 1e-5
 TRAIN_BATCH, ACCUMULATION, TRAIN_STEPS = 8, 4, 3
 SIGMA = 25 / 127.5
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-6  # "pallas" vs "xla" params after one f32 step
-F32_TOL = 1e-4          # atol and rtol: only the summation order differs
+F32_TOL = 1e-4          # atol and rtol: summation order (and 3xTF32 splits) differ
 BF16_REL_TOL = 2e-2     # max |kernel_bf16 - plain_f32| <= this * max |plain_f32|
 SERVED_F32_TOL = 2e-4   # served f32 forward vs the plain forward on the CPU
 SERVED_BF16_REL_TOL = 5e-2  # served bf16 vs served f32, relative to max |y_f32|
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense, no tensor cores for f32
+# H100 SXM dense peaks: bf16 and TF32 on the tensor cores, f32 FMA on the CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 BASE_FILTERS = 32
 IMAGE_SIZE = 256
@@ -120,7 +122,12 @@ def block_params(torch, c, seed, device):
     return {k: v.detach().to(device) for k, v in block.named_parameters()}
 
 
-def bound_ms(shape, dtype_name, itemsize):
+def bound_ms(shape, dtype_name, itemsize, variant="tc"):
+    """(least ms, "operations" or "bytes") of one block at ``shape``: x and y
+    and the weights moved once, against the products at the route's peak.
+    bf16 at the bf16 peak; f32 on the tensor cores as 3xTF32, three TF32
+    products per multiply-add; f32 on the CUDA cores (``variant
+    "cuda_core"``) at the f32 FMA peak."""
     from vub_image_denoising_tpu_torch.ops.fused_block import block_flops, block_weight_count
 
     n, c, h, w = shape
@@ -128,7 +135,11 @@ def bound_ms(shape, dtype_name, itemsize):
     weights = block_weight_count(c, inner)
     nbytes = 2 * n * c * h * w * itemsize + weights * itemsize + 4 * 2 * (3 * inner + c)
     flops = block_flops(n, c, h, w)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    if dtype_name == "float32" and variant == "tc":
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"]
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -166,8 +177,9 @@ def held(torch, fb, y, x, params, ref32):
 
 def check_kernel(torch, device):
     """Kernel 1 vs its plain version at every shape; returns per-shape records.
-    Each bf16 launch at c in TC_WIDTHS must go to the tensor-core variant;
-    the CUDA-core kernel is also held, and timed, on the same bf16 inputs."""
+    Each launch at c in TC_WIDTHS, f32 or bf16, must go to the tensor-core
+    variant; the CUDA-core kernel is also held, and timed, on the same
+    inputs."""
     from vub_image_denoising_tpu_torch.ops import fused_block as fb
 
     records = []
@@ -198,7 +210,7 @@ def check_kernel(torch, device):
                 fail(f"kernel disagrees with its plain version at {shape} {name}")
             rec = {"shape": shape, "kind": kind, "dtype": name, "variant": variant,
                    "max_abs_err": err_same}
-            if variant == "tc":  # the CUDA-core kernel on the same bf16 inputs, not counted
+            if variant == "tc":  # the CUDA-core kernel on the same inputs, not counted
                 cuda_core = lambda: fb._launch("fused_denoising_block", fb._library(),
                                                "fused_block", x, packed, n, h, w, c, c // 2)
                 y_cc = cuda_core()
@@ -217,12 +229,15 @@ def check_kernel(torch, device):
                                     iters)
                 rec["plain_ms"] = cuda_ms(torch, lambda: fb.fused_denoising_block_plain(x, params),
                                           iters)
-                rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, x.element_size())
+                rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, x.element_size(), variant)
                 rec["tile"] = tile_report(shape, dtype)
                 extra = ""
                 if variant == "tc":
                     rec["cuda_core_ms"] = cuda_ms(torch, cuda_core, 5 if c == 32 else 3)
                     extra = f", CUDA-core kernel {rec['cuda_core_ms']:.4f} ms"
+                    if dtype == torch.float32:
+                        rec["cuda_core_bound_ms"] = bound_ms(shape, name, 4, "cuda_core")[0]
+                        extra += f" (bound {rec['cuda_core_bound_ms']:.4f} ms at the f32 FMA peak)"
                     if kind == "microbatch":
                         rec["tile_sweep_ms"] = tile_sweep(torch, fb, x, packed)
                 print(f"time {kind} {shape} {name}: kernel {rec['ms']:.4f} ms, plain "
@@ -237,14 +252,15 @@ def tile_sweep(torch, fb, x, packed):
     """The tensor-core kernel forced to each tile it is built for at x's
     width: checks pick_tile_tc's choice against the alternatives."""
     n, c, h, w = x.shape
+    e = x.element_size()
     out = {}
-    for th, tw in fb.tc_tiles(c):
-        tile = (th, tw, fb.tc_smem_bytes(c, th, tw))
+    for th, tw in fb.tc_tiles(c, e):
+        tile = (th, tw, fb.tc_smem_bytes(c, th, tw, e))
         out[f"{th}x{tw}"] = cuda_ms(torch, lambda: fb._launch(
             "fused_denoising_block", fb._tc_library(), "fused_block_tc", x, packed,
             n, h, w, c, c // 2, tile), 10)
-    picked = fb.pick_tile_tc(n, c, h, w, fb.sm_count(x.device))
-    print(f"tile sweep {tuple(x.shape)} bfloat16 (picked {picked}): "
+    picked = fb.pick_tile_tc(n, c, h, w, fb.sm_count(x.device), e)
+    print(f"tile sweep {tuple(x.shape)} {str(x.dtype).split('.')[-1]} (picked {picked}): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()), flush=True)
     return out
 
@@ -333,20 +349,19 @@ def serve_main_path(torch, ck):
         launches = fused_denoising_block.launches
         tc_launches = fused_denoising_block.tc_launches
         batches = sum(s.stats["batches"] for _, s, _, _ in runs.values())
-        bf16_batches = runs[True][1].stats["batches"]
         for bf16, (results, health) in outs.items():
             b = health["batching"]
             print(f"served {'bf16' if bf16 else 'f32'}: {b}, device {health['devices']}, "
                   f"latency {health['latency']}", flush=True)
             if b["requests"] != 9 or b["rejected"] != 0:
                 fail(f"healthz batching counters wrong: {b}")
-        print(f"main path: {launches} kernel launches for {batches} dispatched batches; "
-              f"{tc_launches} tensor-core launches for {bf16_batches} bf16 batches", flush=True)
-        if launches != 14 * batches or batches == 0:
+        print(f"main path: {launches} kernel launches for {batches} dispatched batches "
+              f"(bf16 {runs[True][1].stats['batches']}, f32 {runs[False][1].stats['batches']}), "
+              f"{tc_launches} of them on the tensor cores", flush=True)
+        if launches != 14 * batches or min(s.stats["batches"] for _, s, _, _ in runs.values()) == 0:
             fail(f"expected 14 launches per batch, got {launches} for {batches}")
-        if tc_launches != 14 * bf16_batches or bf16_batches == 0:
-            fail(f"expected 14 tensor-core launches per bf16 batch, got {tc_launches} "
-                 f"for {bf16_batches}")
+        if tc_launches != launches:
+            fail(f"expected every launch on the tensor cores, got {tc_launches} of {launches}")
 
         # served outputs vs references, on the same 8 images
         x = np.stack(images).astype(np.float32) / 255.0 * 2.0 - 1.0
@@ -428,8 +443,8 @@ def build_kernels():
             kernel = re.search(r"(?<=\d)(fused_block\w*?_kernel)I(.*?)Ev9BlockArgs", entry)
             if kernel:
                 args = kernel.group(2)
-                args = (",".join(re.findall(r"Li(\d+)E", args))
-                        or ("bf16" if "bfloat16" in args else "f32"))
+                args = ",".join(["bf16" if "bfloat16" in args else "f32",
+                                 *re.findall(r"Li(\d+)E", args)])
                 name = f"{kernel.group(1)}<{args}>"
             else:
                 name = entry
@@ -568,8 +583,8 @@ def make_batches(torch, device):
 
 def train_main_path(torch, device):
     """SupervisedTrainer(engine="pallas") steps in f32 and bf16, checked;
-    returns (kernel-1 launches of the run, all and tensor-core, per-engine
-    step times, breakdowns)."""
+    returns (kernel-1 launches of the run, all and tensor-core, in total and
+    per dtype, per-engine step times, breakdowns)."""
     from vub_image_denoising_tpu_torch.models import RDUNet
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
 
@@ -579,24 +594,27 @@ def train_main_path(torch, device):
 
     fused_denoising_block.launches = fused_denoising_block.tc_launches = 0
     after_one, first_loss = None, None
+    launches = {}
     for name, dtype in dtypes.items():
+        launches[name] = {"all": 0, "tc": 0}
         trainer, state = make_trainer(torch, init, "pallas", dtype)
         for i, (noisy, clean) in enumerate(batches):
             before = fused_denoising_block.launches
             tc_before = fused_denoising_block.tc_launches
             state, loss = trainer.train_step(state, noisy, clean)
-            launches = fused_denoising_block.launches - before
+            step = fused_denoising_block.launches - before
             tc = fused_denoising_block.tc_launches - tc_before
-            print(f"train pallas {name} step {i}: loss {loss.item():.6f}, {launches} kernel "
+            launches[name]["all"] += step
+            launches[name]["tc"] += tc
+            print(f"train pallas {name} step {i}: loss {loss.item():.6f}, {step} kernel "
                   f"launches, {tc} on the tensor cores", flush=True)
-            want_tc = 14 * ACCUMULATION if dtype == torch.bfloat16 else 0
-            if not bool(torch.isfinite(loss)) or launches != 14 * ACCUMULATION or tc != want_tc:
-                fail(f"train step {i} ({name}): loss {loss.item()}, {launches} launches, "
-                     f"{tc} tensor-core launches (want {want_tc})")
+            if not bool(torch.isfinite(loss)) or step != 14 * ACCUMULATION or tc != step:
+                fail(f"train step {i} ({name}): loss {loss.item()}, {step} launches, "
+                     f"{tc} tensor-core launches (want {14 * ACCUMULATION} of each)")
             if name == "f32" and i == 0:
                 after_one = {k: v.detach().clone() for k, v in state.params.items()}
                 first_loss = loss.item()
-    launches = {"all": fused_denoising_block.launches, "tc": fused_denoising_block.tc_launches}
+    launches.update(all=fused_denoising_block.launches, tc=fused_denoising_block.tc_launches)
     compare_with_xla(torch, init, batches[0], after_one, first_loss)
 
     step_ms, breakdowns = {}, {}
@@ -803,12 +821,12 @@ def main():
     trainable = check_trainable(torch, device)
     train_launches, step_ms, breakdowns = train_main_path(torch, device)
 
-    def per_forward(recs, shapes, dtype="bfloat16"):
+    def per_forward(recs, shapes, dtype):
         return [(r, cnt) for r in recs for s, cnt in shapes
                 if r["kind"] in ("slice", "microbatch") and r["shape"] == s
                 and r["dtype"] == dtype]
 
-    def timing(recs, shapes, dtype="bfloat16"):
+    def timing(recs, shapes, dtype):
         rows = per_forward(recs, shapes, dtype)
         return {
             "max_abs_err": max(r["max_abs_err"] for r in recs if r["dtype"] == dtype),
@@ -820,35 +838,47 @@ def main():
             "library_ms": None,
         }
 
+    def tc_variant(dtype, short):
+        """Kernel 1's tensor-core variant in one dtype, per forward, with the
+        CUDA-core kernel on the same inputs beside it."""
+        rows = per_forward(records, SLICE_SHAPES, dtype)
+        out = {"variant": "tc", "dtype": dtype,
+               "source": "vub_image_denoising_tpu_torch/csrc/fused_block_tc.cu",
+               "launches": train_launches[short]["tc"],
+               **timing(records, SLICE_SHAPES, dtype),
+               "microbatch_ms": timing(records, MB2_SHAPES, dtype)["ms"],
+               "cuda_core": {
+                   "source": "vub_image_denoising_tpu_torch/csrc/fused_block.cu",
+                   "ms": sum(r["cuda_core_ms"] * cnt for r, cnt in rows),
+                   "max_abs_err": max(r["cuda_core_max_abs_err"] for r in records
+                                      if r["dtype"] == dtype and "cuda_core_max_abs_err" in r)}}
+        if dtype == "float32":
+            out["products"] = "3xTF32: three TF32 mma.sync products per multiply-add"
+            out["cuda_core"]["bound_ms"] = sum(r["cuda_core_bound_ms"] * cnt for r, cnt in rows)
+        return out
+
+    variants = [tc_variant("float32", "f32"), tc_variant("bfloat16", "bf16")]
+    for v in variants:
+        print(f"blocks RDUNet-32 8x256x256 {v['dtype']}: 14 blocks {v['ms']:.3f} ms on the tensor "
+              f"cores (bound {v['bound_ms']:.3f} ms), CUDA-core kernel {v['cuda_core']['ms']:.3f} "
+              f"ms, plain {v['plain_ms']:.3f} ms; max_abs_err vs plain {v['max_abs_err']:.3e}",
+              flush=True)
     kernels = [
         {
             "name": "fused_denoising_block",
             "route": "cuda",
             "source": "vub_image_denoising_tpu_torch/csrc/fused_block_tc.cu",
             "replaces": "vub_image_denoising_tpu/ops/fused_block.py:193",
-            "launches": train_launches["all"],
-            **timing(records, SLICE_SHAPES),
-            "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, bf16 "
-                    "(tensor-core variant)",
-            "variants": [
-                {"variant": "tc", "dtype": "bfloat16",
-                 "source": "vub_image_denoising_tpu_torch/csrc/fused_block_tc.cu",
-                 "launches": train_launches["tc"], **timing(records, SLICE_SHAPES),
-                 "cuda_core_bf16_ms": sum(r["cuda_core_ms"] * cnt for r, cnt in
-                                          per_forward(records, SLICE_SHAPES)),
-                 "cuda_core_bf16_max_abs_err": max(r["cuda_core_max_abs_err"] for r in records
-                                                   if "cuda_core_max_abs_err" in r),
-                 "microbatch_ms": timing(records, MB2_SHAPES)["ms"]},
-                {"variant": "cuda_core", "dtype": "float32",
-                 "source": "vub_image_denoising_tpu_torch/csrc/fused_block.cu",
-                 "launches": train_launches["all"] - train_launches["tc"],
-                 **timing(records, SLICE_SHAPES, "float32"),
-                 "microbatch_ms": timing(records, MB2_SHAPES, "float32")["ms"]},
-            ],
+            "launches": train_launches["tc"],
+            **timing(records, SLICE_SHAPES, "float32"),
+            "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
+                    "(tensor-core variant, 3xTF32); bf16 under variants",
+            "variants": variants,
             "per_shape": [{k: r[k] for k in ("shape", "kind", "dtype", "variant", "ms",
                                              "plain_ms", "bound_ms", "tile")}
-                          | {k: r[k] for k in ("cuda_core_ms", "cuda_core_max_abs_err",
-                                               "tile_sweep_ms") if k in r}
+                          | {k: r[k] for k in ("cuda_core_ms", "cuda_core_bound_ms",
+                                               "cuda_core_max_abs_err", "tile_sweep_ms")
+                             if k in r}
                           for r in records if "ms" in r],
             "launches_by_path": {"train": train_launches, "serve": serve_launches,
                                  "trainable_block": trainable["fused_denoising_block"]},
@@ -863,7 +893,7 @@ def main():
             "source": "vub_image_denoising_tpu_torch/csrc/fused_block_packed.cu",
             "replaces": "vub_image_denoising_tpu/ops/fused_block.py:360",
             "launches": trainable["fused_denoising_block_packed"],
-            **timing(packed_records, PACKED_SHAPES),
+            **timing(packed_records, PACKED_SHAPES, "bfloat16"),
             "work": "the 12 blocks at c <= 128 of one RDUNet-32 forward, batch 8, "
                     "256x256, bf16, run packed",
             "launches_by_path": {"trainable_block": trainable["fused_denoising_block_packed"]},

@@ -9,7 +9,8 @@ only the port is installed (``--noconftest`` skips the suite's JAX set-up):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 (TF32 off) atol = rtol = 1e-4, since kernel and cuDNN differ
-only in summation order; bf16 max-abs error <= 2e-2 * max|y| against the f32
+only in summation order (the tensor-core kernel's 3xTF32 products keep f32
+accuracy); bf16 max-abs error <= 2e-2 * max|y| against the f32
 plain result, a few bf16 ulps (2^-8 relative) through four rounded levels."""
 
 import pytest
@@ -198,23 +199,25 @@ def test_cuda_rdunet_backward_runs_14_kernels(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The tensor-core variant of kernel 1 (csrc/fused_block_tc.cu): bf16 at
-# c in TC_WIDTHS.  Same tolerance as every bf16 case above.
+# The tensor-core variant of kernel 1 (csrc/fused_block_tc.cu): f32 (3xTF32)
+# and bf16 at c in TC_WIDTHS.  Same tolerances as every case above: f32 is
+# held to exact f32 (atol = rtol = 1e-4, TF32 off in the plain version).
 # ---------------------------------------------------------------------------
 
-def _bf16_input(shape, device, seed=1):
+def _input(shape, device, dtype, seed=1):
     gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    x = torch.randn(shape, generator=gen, device=device).to(getattr(torch, dtype))
     return x.contiguous(memory_format=torch.channels_last)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 32, 37, 45), (1, 64, 20, 19), (1, 128, 13, 11),
                                    (1, 256, 9, 11), (2, 256, 32, 32)])
-def test_cuda_tc_kernel_matches_plain(cuda, shape):
+def test_cuda_tc_kernel_matches_plain(cuda, shape, dtype):
     """Ragged images at every RDUNet-32 width, and the micro-batch-2 shape of
     a train step at c = 256 (4x4 tiles); one tensor-core launch each."""
     params = _block(shape[1], cuda)
-    x = _bf16_input(shape, cuda)
+    x = _input(shape, cuda, dtype)
     before, tc_before = fb.fused_denoising_block.launches, fb.fused_denoising_block.tc_launches
     y = fb.fused_denoising_block(x, params)
     torch.cuda.synchronize()
@@ -223,21 +226,24 @@ def test_cuda_tc_kernel_matches_plain(cuda, shape):
     _check(y, x, params)
 
 
-@pytest.mark.parametrize("c,tile", [(c, t) for c in fb.TC_WIDTHS for t in fb.tc_tiles(c)])
-def test_cuda_tc_kernel_every_tile(cuda, c, tile):
-    """Each (c, tile) the kernel is built for, forced, on a ragged image."""
+@pytest.mark.parametrize("dtype,c,tile", [
+    (dtype, c, t) for dtype, itemsize in (("float32", 4), ("bfloat16", 2))
+    for c in fb.TC_WIDTHS for t in fb.tc_tiles(c, itemsize)])
+def test_cuda_tc_kernel_every_tile(cuda, dtype, c, tile):
+    """Each (dtype, c, tile) the kernel is built for, forced, on a ragged image."""
     params = _block(c, cuda, seed=6)
-    x = _bf16_input((1, c, 19, 13), cuda, seed=7)
+    x = _input((1, c, 19, 13), cuda, dtype, seed=7)
     y = fb._launch("fused_denoising_block", fb._tc_library(), "fused_block_tc", x,
-                   fb.pack_block_params(params, torch.bfloat16, cuda), 1, 19, 13, c, c // 2,
-                   (*tile, fb.tc_smem_bytes(c, *tile)))
+                   fb.pack_block_params(params, x.dtype, cuda), 1, 19, 13, c, c // 2,
+                   (*tile, fb.tc_smem_bytes(c, *tile, x.element_size())))
     torch.cuda.synchronize()
     _check(y, x, params)
 
 
-def test_cuda_tc_kernel_border_padding(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tc_kernel_border_padding(cuda, dtype):
     params = _block(32, cuda, seed=2)
-    x = torch.ones(1, 32, 24, 24, device=cuda, dtype=torch.bfloat16)
+    x = torch.ones(1, 32, 24, 24, device=cuda, dtype=getattr(torch, dtype))
     tc_before = fb.fused_denoising_block.tc_launches
     y = fb.fused_denoising_block(x.contiguous(memory_format=torch.channels_last), params)
     torch.cuda.synchronize()
@@ -246,12 +252,13 @@ def test_cuda_tc_kernel_border_padding(cuda):
     assert not torch.allclose(y[0, :, 0, 12].float(), y[0, :, 12, 12].float(), atol=1e-3)
 
 
-@pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 0), ("bfloat16", 16, 0),
-                                         ("bfloat16", 512, 0), ("bfloat16", 64, 1)])
+@pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 1), ("float32", 16, 0),
+                                         ("bfloat16", 16, 0), ("bfloat16", 512, 0),
+                                         ("bfloat16", 64, 1)])
 def test_cuda_variant_counters(cuda, dtype, c, tc):
-    """f32, and bf16 outside TC_WIDTHS, launch the CUDA-core kernel; only
-    bf16 at c in TC_WIDTHS counts as a tensor-core launch.  Each output is
-    held against the plain version."""
+    """f32 and bf16 at c in TC_WIDTHS count as a tensor-core launch; at
+    other widths they launch the CUDA-core kernel.  Each output is held
+    against the plain version."""
     params = _block(c, cuda)
     x = torch.randn(1, c, 10, 12, device=cuda).to(getattr(torch, dtype)).contiguous(
         memory_format=torch.channels_last)
@@ -263,14 +270,25 @@ def test_cuda_variant_counters(cuda, dtype, c, tc):
     _check(y, x, params)
 
 
+def _cuda_core_at_tc_width(shape, device, dtype):
+    n, c, h, w = shape
+    params = _block(c, device)
+    x = _input(shape, device, dtype)
+    y = fb._launch("fused_denoising_block", fb._library(), "fused_block", x,
+                   fb.pack_block_params(params, x.dtype, device), n, h, w, c, c // 2)
+    torch.cuda.synchronize()
+    _check(y, x, params)
+
+
 @pytest.mark.parametrize("shape", [(2, 32, 37, 45), (1, 64, 20, 19), (1, 256, 9, 11)])
 def test_cuda_core_kernel_bf16_at_tc_widths(cuda, shape):
     """The CUDA-core kernel's bf16 build, forced at widths the wrapper sends
     to the tensor cores: the same arithmetic serves bf16 at every other width."""
-    n, c, h, w = shape
-    params = _block(c, cuda)
-    x = _bf16_input(shape, cuda)
-    y = fb._launch("fused_denoising_block", fb._library(), "fused_block", x,
-                   fb.pack_block_params(params, torch.bfloat16, cuda), n, h, w, c, c // 2)
-    torch.cuda.synchronize()
-    _check(y, x, params)
+    _cuda_core_at_tc_width(shape, cuda, "bfloat16")
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 37, 45), (1, 64, 20, 19), (1, 256, 9, 11)])
+def test_cuda_core_kernel_f32_at_tc_widths(cuda, shape):
+    """The CUDA-core kernel's f32 build, forced at widths the wrapper sends
+    to the tensor cores: the same arithmetic serves f32 at every other width."""
+    _cuda_core_at_tc_width(shape, cuda, "float32")

@@ -16,20 +16,26 @@ to the compute dtype, bias and alpha stay f32 until used.
 
 Two kernels compute it; the choice between them is static (``block_variant``):
 
-- bf16 with c in ``TC_WIDTHS`` (32, 64, 128, 256: every RDUNet-32 width)
-  launches ``csrc/fused_block_tc.cu``: an implicit GEMM per level on the
-  tensor cores (``mma.sync`` bf16 -> f32, operands staged with ``cp.async``),
-  with a grid-aware tile (``pick_tile_tc``);
-- f32 (exact f32 parity rules out TF32), and bf16 at any other width,
-  launches ``csrc/fused_block.cu`` on the CUDA cores, tile ``pick_tile``.
+- f32 and bf16 with c in ``TC_WIDTHS`` (32, 64, 128, 256: every RDUNet-32
+  width) launch ``csrc/fused_block_tc.cu``: an implicit GEMM per level on the
+  tensor cores, operands staged with ``cp.async``, with a grid-aware tile
+  (``pick_tile_tc``).  bf16 runs ``mma.sync`` bf16 -> f32; f32 runs
+  error-compensated TF32 (3xTF32: each operand split into two TF32 values,
+  three products per pair), which keeps exact-f32 accuracy, where one TF32
+  product would not;
+- f32 and bf16 at any other width (c = 16, 512, 1024, ...) launch
+  ``csrc/fused_block.cu`` on the CUDA cores, tile ``pick_tile``.
+
+The rule has no option and no fallback: a dtype and width decide the kernel.
 
 Both give each thread block one (image, th x tw output tile) and keep o0..o2
 in shared memory over a halo pyramid of th+6 -> th+4 -> th+2 -> th rows;
 o0..o2 never reach device memory.  A build or launch error raises; nothing
 falls back.  Bound on an H100 SXM: 85.5*c^2*H*W*N FLOP per launch
-(5.74 GFLOP per 256^2 image per block at c = 32; about 46 us at batch 8 at the
-989 TFLOP/s bf16 dense peak, against about 20 us for the 67 MB of bf16 x and y
-at 3.35 TB/s), so it is compute-bound.
+(5.74 GFLOP per 256^2 image per block at c = 32; at batch 8 about 46 us at the
+989 TFLOP/s bf16 dense peak, or 278 us for f32's three TF32 products at the
+494.7 TFLOP/s TF32 peak, against about 20 us / 40 us for the bf16 / f32 bytes
+of x and y at 3.35 TB/s), so it is compute-bound.
 
 Tensors are logically NCHW, as everywhere in PyTorch, and the kernel takes
 them in NHWC memory (``torch.channels_last``).  The wrapper runs the plain
@@ -73,30 +79,33 @@ def pick_tile(inner: int, itemsize: int):
     raise ValueError(f"no tile fits {inner} inner channels in shared memory")
 
 
-# The tensor-core kernel (csrc/fused_block_tc.cu).  Its shared memory holds
-# o0..o2 (a position's channels padded by 16 bytes), x in 32-channel slabs
-# over the (th+8) x (tw+8) region (two buffers when c > 32), and two weight
-# stages of 32 K rows (3 taps when N <= 64, else 1) of N columns + 16 bytes.
+# The tensor-core kernel (csrc/fused_block_tc.cu).  For element size e its
+# shared memory holds o0..o2 (a position's inner channels, padded by 16
+# bytes), x in slabs of 64 bytes of channels over the (th+8) x (tw+8) region
+# (two buffers when c spans more than one slab), and two weight stages of 32 K
+# rows (3 taps when N <= 64, else 1) of N + 8 columns.
 TC_WIDTHS = (32, 64, 128, 256)
 TC_TILES = ((16, 16), (8, 8), (4, 4))
 
 
-def tc_smem_bytes(c: int, th: int, tw: int) -> int:
-    """Shared memory of the tensor-core kernel for one (th x tw) tile;
-    mirrors ``tc_smem_bytes`` in ``csrc/fused_block_tc.cu``."""
+def tc_smem_bytes(c: int, th: int, tw: int, itemsize: int) -> int:
+    """Shared memory of the tensor-core kernel for one (th x tw) tile of
+    elements of ``itemsize`` bytes (2: bf16, 4: f32); mirrors
+    ``tc_smem_bytes`` in ``csrc/fused_block_tc.cu``."""
     positions = (th + 6) * (tw + 6) + (th + 4) * (tw + 4) + (th + 2) * (tw + 2)
-    x_bufs = 2 if c > 32 else 1
+    x_bufs = 2 if c * itemsize > 64 else 1
 
     def stage(n):
-        return (3 if n <= 64 else 1) * 32 * (n * 2 + 16)
+        return (3 if n <= 64 else 1) * 32 * (n + 8) * itemsize
 
-    return (positions * (c + 16) + x_bufs * (th + 8) * (tw + 8) * 80
+    return (positions * (c // 2 * itemsize + 16) + x_bufs * (th + 8) * (tw + 8) * 80
             + 2 * max(stage(c // 2), stage(c)))
 
 
-def tc_tiles(c: int):
-    """The tiles the tensor-core kernel is built for at width ``c``."""
-    return [t for t in TC_TILES if tc_smem_bytes(c, *t) <= _SMEM_MAX]
+def tc_tiles(c: int, itemsize: int):
+    """The tiles the tensor-core kernel is built for at width ``c`` and
+    element size ``itemsize``."""
+    return [t for t in TC_TILES if tc_smem_bytes(c, *t, itemsize) <= _SMEM_MAX]
 
 
 def tile_macs(c: int, th: int, tw: int) -> int:
@@ -106,9 +115,10 @@ def tile_macs(c: int, th: int, tw: int) -> int:
                * (th + 6 - 2 * i) * (tw + 6 - 2 * i) for i in range(4))
 
 
-def pick_tile_tc(n: int, c: int, h: int, w: int, sms: int):
-    """The tensor-core kernel's tile for an (n, c, h, w) input on a card
-    with ``sms`` streaming multiprocessors (``sm_count``).
+def pick_tile_tc(n: int, c: int, h: int, w: int, sms: int, itemsize: int):
+    """The tensor-core kernel's tile for an (n, c, h, w) input of elements
+    of ``itemsize`` bytes on a card with ``sms`` streaming multiprocessors
+    (``sm_count``).
 
     Weighs waves over the SMs against halo recompute: a tile whose
     blocks fit ``per_sm`` to an SM (1 or 2, by shared memory) costs
@@ -116,9 +126,9 @@ def pick_tile_tc(n: int, c: int, h: int, w: int, sms: int):
     multiply-adds run back to back on one SM (fewer when one wave does not
     fill every SM twice).  The cheapest tile wins; ties go to the larger."""
     best, best_cost = None, None
-    for th, tw in tc_tiles(c):
+    for th, tw in tc_tiles(c, itemsize):
         blocks = n * -(-h // th) * -(-w // tw)
-        per_sm = 2 if tc_smem_bytes(c, th, tw) <= _SMEM_TWO_PER_SM else 1
+        per_sm = 2 if tc_smem_bytes(c, th, tw, itemsize) <= _SMEM_TWO_PER_SM else 1
         waves = -(-blocks // (sms * per_sm))
         cost = waves * min(per_sm, -(-blocks // sms)) * tile_macs(c, th, tw)
         if best_cost is None or cost < best_cost:
@@ -133,16 +143,18 @@ def sm_count(device) -> int:
 
 def block_variant(dtype, c: int) -> str:
     """Which kernel a CUDA input of this dtype and width launches: ``"tc"``
-    (tensor cores, bf16 at c in TC_WIDTHS) or ``"cuda_core"`` (the rest)."""
-    return "tc" if dtype == torch.bfloat16 and c in TC_WIDTHS else "cuda_core"
+    (tensor cores: f32 or bf16 at c in TC_WIDTHS) or ``"cuda_core"`` (f32
+    or bf16 at any other width)."""
+    return ("tc" if dtype in (torch.float32, torch.bfloat16) and c in TC_WIDTHS
+            else "cuda_core")
 
 
 def block_tile(dtype, n: int, c: int, h: int, w: int, sms: int):
     """(variant, th, tw, shared-memory bytes) of a launch at this input on a
     card with ``sms`` SMs."""
     if block_variant(dtype, c) == "tc":
-        th, tw = pick_tile_tc(n, c, h, w, sms)
-        return "tc", th, tw, tc_smem_bytes(c, th, tw)
+        th, tw = pick_tile_tc(n, c, h, w, sms, dtype.itemsize)
+        return "tc", th, tw, tc_smem_bytes(c, th, tw, dtype.itemsize)
     th, tw = pick_tile(c // 2, dtype.itemsize)
     return "cuda_core", th, tw, smem_bytes(c // 2, th, tw, dtype.itemsize)
 
@@ -273,10 +285,11 @@ def fused_denoising_block(x, params, packed=None):
     """Apply one DenoisingBlock to ``x`` (N, C, H, W).
 
     On a CPU tensor this is ``fused_denoising_block_plain``.  On a CUDA tensor
-    it launches a kernel, by this static rule (``block_variant``): bf16 with
-    c in ``TC_WIDTHS`` launches the tensor-core kernel
-    (``csrc/fused_block_tc.cu``, counted in ``.tc_launches``); f32, and bf16
-    at other widths, the CUDA-core kernel (``csrc/fused_block.cu``).  Every
+    it launches a kernel, by this static rule (``block_variant``): f32 or
+    bf16 with c in ``TC_WIDTHS`` launches the tensor-core kernel
+    (``csrc/fused_block_tc.cu``, 3xTF32 for f32; counted in
+    ``.tc_launches``); other widths the CUDA-core kernel
+    (``csrc/fused_block.cu``).  Every
     launch counts in ``.launches``.  ``x`` must be f32 or bf16 in
     channels_last memory; ``packed`` is ``pack_block_params(params, x.dtype,
     x.device)``, which callers cache (it is built here when omitted).  The
