@@ -4,11 +4,13 @@
 Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the three DenoisingBlock libraries from ``csrc/`` with nvcc, in
+2. Builds the four DenoisingBlock libraries from ``csrc/`` with nvcc, in
    parallel: kernel 1 on the CUDA cores (NHWC, f32 and bf16 outside
    TC_WIDTHS), kernel 1 on the tensor cores (bf16, and f32 as 3xTF32,
-   ``fused_block_tc.cu``), and kernel 2 (2x2 even-packed); prints each
-   kernel's ptxas registers and spills.
+   ``fused_block_tc.cu``), kernel 2 (2x2 even-packed) on the tensor cores
+   (``fused_block_packed_tc.cu``, the same body as kernel 1's) and on the
+   CUDA cores; prints each nvcc time and each kernel's ptxas registers and
+   spills, by library.
 3. Holds kernel 1 against its plain PyTorch version on the card at every
    block shape of an RDUNet-32 forward on 8 x 256^2 images, at the four
    micro-batch-2 shapes of a train step, on a ragged shape and on a constant
@@ -19,8 +21,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    batch-8 and micro-batch shapes beside each shape's bound, tile and thread
    blocks, and sweeps the tensor-core tiles at the micro-batch shapes.
 4. Holds kernel 2 against its plain version at the packed shapes of the
-   RDUNet-32 blocks at c <= 128, a ragged and a border case, f32 and bf16,
-   and, unpacked, against kernel 1 (its contract).
+   RDUNet-32 blocks at c <= 128, a ragged and a border case, f32 and bf16;
+   each launch must be a tensor-core launch, and its output, unpacked, must
+   equal kernel 1's on the same image bit for bit (its contract).  Times it
+   at the slice shapes beside kernel 1, the CUDA-core kernel 2 (held on the
+   same inputs too), the plain version and the bound.
 5. Serves a random-weight RDUNet-32 (seeded, saved as a reference-layout
    .pth) through the port's BatchingDenoiseService over HTTP, in bf16 and in
    f32: 8 concurrent raw 256x256x3 requests, one PNG request and /healthz
@@ -30,8 +35,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 6. Times each block shape (kernel, plain version, bound) and the forward.
 7. The differentiable block: ``fused_block_trainable`` through kernel 1 and
    kernel 2 at two RDUNet-32 block shapes, f32: loss and every gradient
-   against autograd through the eager block, one launch per forward, none in
-   the backward.
+   against autograd through the eager block, one launch per forward, on the
+   tensor cores, none in the backward.
 8. Trains: ``SupervisedTrainer(engine="pallas")`` on RDUNet-32, 8 x 3 x 256^2
    super-batches, accumulation 4, AdamW + StepLR + clip 1.0, 3 steps in f32
    and in bf16: 56 kernel launches per step, all 56 on the tensor cores in
@@ -63,6 +68,7 @@ import time
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CSRC = "vub_image_denoising_tpu_torch/csrc/"
 
 # Block shapes (N, C, H, W) of one RDUNet-32 forward at batch 8, 256^2, and how
 # many of the 14 DenoisingBlocks run at each.
@@ -144,15 +150,17 @@ def bound_ms(shape, dtype_name, itemsize, variant="tc"):
 
 
 def tile_report(shape, dtype, packed=False):
-    """The kernel variant and tile a launch at ``shape`` takes on this card,
-    its grid size and the work it does per useful FLOP (every tile
-    recomputes its halo)."""
+    """The kernel variant and tile a launch at the image shape ``shape``
+    takes on this card (kernel 2's with ``packed``, from the even-packed
+    input's shape), its grid size and the work it does per useful FLOP
+    (every tile recomputes its halo)."""
     from vub_image_denoising_tpu_torch.ops.fused_block import (block_tile, block_weight_count,
-                                                               pick_tile, sm_count, tile_macs)
+                                                               packed_block_tile, sm_count,
+                                                               tile_macs)
 
     n, c, h, w = shape
-    if packed:  # kernel 2 always runs on the CUDA cores
-        variant, (th, tw) = "cuda_core", pick_tile(c // 2, dtype.itemsize)
+    if packed:
+        variant, th, tw, _ = packed_block_tile(dtype, n, 4 * c, h // 2, w // 2, sm_count("cuda"))
     else:
         variant, th, tw, _ = block_tile(dtype, n, c, h, w, sm_count("cuda"))
     blocks = n * -(-h // th) * -(-w // tw)
@@ -160,18 +168,19 @@ def tile_report(shape, dtype, packed=False):
     return f"{variant} tile {th}x{tw}, {blocks} thread blocks, x{work:.2f} work"
 
 
-def held(torch, fb, y, x, params, ref32):
-    """Holds a kernel's output y on x against the plain version: f32 to
-    F32_TOL, bf16 to BF16_REL_TOL * max|y| of the plain f32 result.
-    Returns (max error vs plain at x's dtype, vs the reference, ok, tol)."""
-    err_same = (y.float() - fb.fused_denoising_block_plain(x, params).float()).abs().max().item()
+def held(torch, plain, y, x, ref32):
+    """Holds a kernel's output y on x against its plain version ``plain``
+    (a function of x): f32 to F32_TOL, bf16 to BF16_REL_TOL * max|y| of the
+    plain f32 result.  Returns (max error vs plain at x's dtype, vs the
+    reference, ok, tol); ok also needs y finite."""
+    err_same = (y.float() - plain(x).float()).abs().max().item()
+    finite = bool(torch.isfinite(y.float()).all())
     if x.dtype == torch.float32:
         ok = torch.allclose(y, ref32, atol=F32_TOL, rtol=F32_TOL)
-        return err_same, err_same, ok, f"atol=rtol={F32_TOL}"
+        return err_same, err_same, ok and finite, f"atol=rtol={F32_TOL}"
     scale = ref32.abs().max().item()
-    err_ref = (y.float() - fb.fused_denoising_block_plain(x.float(), params)).abs().max().item()
-    ok = err_ref <= BF16_REL_TOL * scale
-    return (err_same, err_ref, ok and bool(torch.isfinite(y.float()).all()),
+    err_ref = (y.float() - plain(x.float())).abs().max().item()
+    return (err_same, err_ref, err_ref <= BF16_REL_TOL * scale and finite,
             f"<= {BF16_REL_TOL}*max|y| = {BF16_REL_TOL * scale:.4g} vs plain f32")
 
 
@@ -202,11 +211,12 @@ def check_kernel(torch, device):
             variant = "tc" if fb.fused_denoising_block.tc_launches > tc_before else "cuda_core"
             if variant != fb.block_variant(dtype, c):
                 fail(f"{shape} {name} launched the {variant} variant")
-            err_same, err_ref, ok, tol = held(torch, fb, y, x, params, ref32)
+            plain = lambda v: fb.fused_denoising_block_plain(v, params)
+            err_same, err_ref, ok, tol = held(torch, plain, y, x, ref32)
             print(f"check {kind} {shape} {name} ({variant}): max_abs_err vs plain({name}) "
                   f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}) -> "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not bool(torch.isfinite(y.float()).all()) or not ok:
+            if not ok:
                 fail(f"kernel disagrees with its plain version at {shape} {name}")
             rec = {"shape": shape, "kind": kind, "dtype": name, "variant": variant,
                    "max_abs_err": err_same}
@@ -215,8 +225,8 @@ def check_kernel(torch, device):
                                                "fused_block", x, packed, n, h, w, c, c // 2)
                 y_cc = cuda_core()
                 torch.cuda.synchronize()
-                rec["cuda_core_max_abs_err"], err_ref, ok, tol = held(torch, fb, y_cc, x,
-                                                                      params, ref32)
+                rec["cuda_core_max_abs_err"], err_ref, ok, tol = held(torch, plain, y_cc, x,
+                                                                      ref32)
                 print(f"check {kind} {shape} {name} (cuda_core): max_abs_err vs plain({name}) "
                       f"{rec['cuda_core_max_abs_err']:.3e}, vs reference {err_ref:.3e} ({tol}) "
                       f"-> {'ok' if ok else 'FAIL'}", flush=True)
@@ -416,27 +426,30 @@ def time_forward(torch, ck):
     return out
 
 
-LIBRARIES = ("fused_block", "fused_block_tc", "fused_block_packed")
+LIBRARIES = ("fused_block", "fused_block_tc", "fused_block_packed", "fused_block_packed_tc")
 
 
 def build_kernels():
-    """Build the three kernel libraries at once (one nvcc each) and print
-    each kernel's registers, shared memory and spills as ptxas reports them."""
+    """Build the four kernel libraries at once (one nvcc each) and print each
+    nvcc time and each kernel's registers and spills as ptxas reports them.
+    Returns {library: {kernel: ptxas numbers}}: the two tensor-core libraries
+    hold kernels of one name, told apart by the layout argument."""
     import re
 
     from vub_image_denoising_tpu_torch.ops import cuda_build
-    from vub_image_denoising_tpu_torch.ops.fused_block import (_library, _packed_library,
-                                                               _tc_library)
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
 
     t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        for fut in [pool.submit(f) for f in (_library, _tc_library, _packed_library)]:
+        for fut in [pool.submit(f) for f in (fb._library, fb._tc_library, fb._packed_library,
+                                             fb._packed_tc_library)]:
             fut.result()
     print(f"build {', '.join(l + '.cu' for l in LIBRARIES)}: {time.monotonic() - t0:.1f} s wall "
-          "(nvcc " + ", ".join(f"{cuda_build.build_seconds[l]:.1f} s" for l in LIBRARIES) + ")",
-          flush=True)
+          "(nvcc " + ", ".join(f"{l} {cuda_build.build_seconds[l]:.1f} s" for l in LIBRARIES)
+          + ")", flush=True)
     ptxas = {}
     for lib in LIBRARIES:
+        ptxas[lib] = {}
         for entry, body in re.findall(r"Compiling entry function '([^']+)' for 'sm_90a'\n(.*?)"
                                       r"(?=ptxas info    : Compiling|\Z)",
                                       cuda_build.ptxas_log[lib], re.S):
@@ -444,24 +457,27 @@ def build_kernels():
             if kernel:
                 args = kernel.group(2)
                 args = ",".join(["bf16" if "bfloat16" in args else "f32",
-                                 *re.findall(r"Li(\d+)E", args)])
+                                 *(n if k == "i" else ("packed" if n == "1" else "nhwc")
+                                   for k, n in re.findall(r"L([ib])(\d+)E", args))])
                 name = f"{kernel.group(1)}<{args}>"
             else:
                 name = entry
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
-            ptxas[name] = {"registers": int(regs.group(1)) if regs else None,
-                           "spill_stores": int(spill.group(1)) if spill else None,
-                           "spill_loads": int(spill.group(2)) if spill else None}
-            print(f"ptxas {name}: {ptxas[name]}", flush=True)
+            ptxas[lib][name] = {"registers": int(regs.group(1)) if regs else None,
+                                "spill_stores": int(spill.group(1)) if spill else None,
+                                "spill_loads": int(spill.group(2)) if spill else None}
+            print(f"ptxas {lib}: {name}: {ptxas[lib][name]}", flush=True)
     return ptxas
 
 
 def check_packed_kernel(torch, device):
-    """Kernel 2 vs its plain version and, unpacked, vs kernel 1; per-shape records."""
-    from vub_image_denoising_tpu_torch.ops.fused_block import (
-        fused_denoising_block, fused_denoising_block_packed, fused_denoising_block_packed_plain,
-        kernel_weights_from_packed, pack_block_params_packed)
+    """Kernel 2 vs its plain version and, unpacked, vs kernel 1 on the same
+    image, which it must equal bit for bit; per-shape records.  Each launch
+    at c in TC_WIDTHS must go to the tensor-core variant.  At the slice
+    shapes it is timed beside kernel 1 and the CUDA-core kernel 2
+    (``fused_block_packed.cu``, also held) on the same inputs."""
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
     from vub_image_denoising_tpu_torch.ops.packing import pack2x2, unpack2x2
 
     records = []
@@ -470,59 +486,87 @@ def check_packed_kernel(torch, device):
     for shape, kind in cases:
         n, c, h, w = shape
         params = block_params(torch, c, seed=c, device=device)
-        pq = pack_block_params_packed(params)
+        pq = fb.pack_block_params_packed(params)
         gen = torch.Generator(device=device).manual_seed(1)
         x32 = (torch.ones(shape, device=device) if kind == "border"
                else torch.randn(shape, generator=gen, device=device))
         x32 = x32.contiguous(memory_format=torch.channels_last)
-        ref32 = fused_denoising_block_packed_plain(pack2x2(x32), pq)
-        scale = ref32.abs().max().item()
+        ref32 = fb.fused_denoising_block_packed_plain(pack2x2(x32), pq)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
-            xq = pack2x2(x32.to(dtype))
-            kw = kernel_weights_from_packed(pq, dtype)
-            yq = fused_denoising_block_packed(xq, pq, kw)
+            x = x32.to(dtype)
+            xq = pack2x2(x)
+            kw = fb.kernel_weights_from_packed(pq, dtype)
+            tc_before = fb.fused_denoising_block_packed.tc_launches
+            yq = fb.fused_denoising_block_packed(xq, pq, kw)
             torch.cuda.synchronize()
-            err_same = (yq.float() - fused_denoising_block_packed_plain(xq, pq).float()).abs().max().item()
-            if dtype == torch.float32:
-                ok = torch.allclose(yq, ref32, atol=F32_TOL, rtol=F32_TOL)
-                one = fused_denoising_block(x32, params)
-                err_ref = (unpack2x2(yq) - one).abs().max().item()
-                ok = ok and torch.allclose(unpack2x2(yq), one, atol=F32_TOL, rtol=F32_TOL)
-                tol = f"atol=rtol={F32_TOL}; unpacked vs kernel 1"
-            else:
-                err_ref = (yq.float() - ref32).abs().max().item()
-                ok = err_ref <= BF16_REL_TOL * scale
-                tol = f"<= {BF16_REL_TOL}*max|y| = {BF16_REL_TOL * scale:.4g} vs plain f32"
-            print(f"check packed {kind} {shape} {name}: max_abs_err vs plain({name}) "
-                  f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}) -> "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not bool(torch.isfinite(yq.float()).all()) or not ok:
+            variant = ("tc" if fb.fused_denoising_block_packed.tc_launches > tc_before
+                       else "cuda_core")
+            if variant != fb.block_variant(dtype, c):
+                fail(f"kernel 2 at {shape} {name} launched the {variant} variant")
+            plain = lambda v: fb.fused_denoising_block_packed_plain(v, pq)
+            err_same, err_ref, ok, tol = held(torch, plain, yq, xq, ref32)
+            kw1 = fb.pack_block_params(params, dtype, device)
+            one = fb.fused_denoising_block(x, params, kw1)
+            torch.cuda.synchronize()
+            diff_one = (unpack2x2(yq).float() - one.float()).abs().max().item()
+            same = torch.equal(unpack2x2(yq), one)
+            print(f"check packed {kind} {shape} {name} ({variant}): max_abs_err vs plain({name}) "
+                  f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}); unpacked vs kernel 1: "
+                  f"max abs diff {diff_one} (must be 0.0) -> "
+                  f"{'ok' if ok and same else 'FAIL'}", flush=True)
+            if not ok:
                 fail(f"kernel 2 disagrees with its plain version at {shape} {name}")
-            rec = {"shape": shape, "kind": kind, "dtype": name, "max_abs_err": err_same}
+            if not same:
+                fail(f"kernel 2, unpacked, differs from kernel 1 at {shape} {name}")
+            rec = {"shape": shape, "kind": kind, "dtype": name, "variant": variant,
+                   "max_abs_err": err_same, "kernel1_max_abs_diff": diff_one}
             if kind == "slice":
-                iters = 5 if c == 32 else 10
-                rec["ms"] = cuda_ms(torch, lambda: fused_denoising_block_packed(xq, pq, kw), iters)
-                rec["plain_ms"] = cuda_ms(
-                    torch, lambda: fused_denoising_block_packed_plain(xq, pq), iters)
-                rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, xq.element_size())
-                print(f"time packed {shape} {name}: kernel {rec['ms']:.4f} ms, plain "
-                      f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-                      f"({rec['bound_by']}), {block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s; "
-                      f"{tile_report(shape, xq.dtype, packed=True)}", flush=True)
+                cuda_core = lambda: fb._launch("fused_denoising_block_packed",
+                                               fb._packed_library(), "fused_block_packed",
+                                               xq, kw, n, h, w, c, c // 2)
+                y_cc = cuda_core()
+                torch.cuda.synchronize()
+                rec["cuda_core_max_abs_err"], err_ref, ok, tol = held(torch, plain, y_cc, xq,
+                                                                      ref32)
+                print(f"check packed {kind} {shape} {name} (cuda_core): max_abs_err vs "
+                      f"plain({name}) {rec['cuda_core_max_abs_err']:.3e}, vs reference "
+                      f"{err_ref:.3e} ({tol}) -> {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"the CUDA-core kernel 2 disagrees with its plain version at {shape} "
+                         f"{name}")
+                # in turns (kernel 2, kernel 1, kernel 1, kernel 2): neither gains by
+                # going first
+                k2 = lambda: fb.fused_denoising_block_packed(xq, pq, kw)
+                k1 = lambda: fb.fused_denoising_block(x, params, kw1)
+                t2a, t1a, t1b, t2b = (cuda_ms(torch, f, 10) for f in (k2, k1, k1, k2))
+                rec["ms"], rec["kernel1_ms"] = (t2a + t2b) / 2, (t1a + t1b) / 2
+                rec["plain_ms"] = cuda_ms(torch, lambda: plain(xq), 10)
+                rec["cuda_core_ms"] = cuda_ms(torch, cuda_core, 3)
+                rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, xq.element_size(),
+                                                            variant)
+                rec["tile"] = tile_report(shape, dtype, packed=True)
+                print(f"time packed {shape} {name}: kernel {rec['ms']:.4f} ms ({variant}), "
+                      f"kernel 1 {rec['kernel1_ms']:.4f} ms, CUDA-core kernel 2 "
+                      f"{rec['cuda_core_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                      f"{block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s; {rec['tile']}",
+                      flush=True)
             records.append(rec)
     return records
 
 
 def check_trainable(torch, device):
-    """fused_block_trainable, both forms, vs autograd through the eager block.
-    Returns the launches of each kernel in this run (counts reset first)."""
+    """fused_block_trainable, both forms, vs autograd through the eager block:
+    one tensor-core launch forward, none backward.  Returns the launches of
+    each kernel in this run, all and tensor-core (counts reset first)."""
     from vub_image_denoising_tpu_torch.models.fused_apply import (_dense_block_xla,
                                                                   fused_block_trainable)
     from vub_image_denoising_tpu_torch.ops.fused_block import (fused_denoising_block,
                                                                fused_denoising_block_packed)
 
-    fused_denoising_block.launches = fused_denoising_block_packed.launches = 0
+    for counter in (fused_denoising_block, fused_denoising_block_packed):
+        counter.launches = counter.tc_launches = 0
     max_err = 0.0
     for shape in TRAINABLE_SHAPES:
         c = shape[1]
@@ -536,9 +580,9 @@ def check_trainable(torch, device):
         want = torch.autograd.grad(want_loss, [x, *params.values()])
         for packed, counter in ((False, fused_denoising_block),
                                 (True, fused_denoising_block_packed)):
-            before = counter.launches
+            before, tc_before = counter.launches, counter.tc_launches
             loss = (fused_block_trainable(x, params, packed=packed) - target).abs().mean()
-            fwd = counter.launches - before
+            fwd, tc_fwd = counter.launches - before, counter.tc_launches - tc_before
             grads = torch.autograd.grad(loss, [x, *params.values()])
             torch.cuda.synchronize()
             bwd = counter.launches - before - fwd
@@ -549,11 +593,13 @@ def check_trainable(torch, device):
             max_err = max(max_err, err)
             print(f"trainable block {shape} packed={packed}: loss {loss.item():.7f} vs "
                   f"{want_loss.item():.7f}, max grad err {err:.3e} (rtol {GRAD_RTOL}, atol "
-                  f"{GRAD_ATOL}), launches forward {fwd} backward {bwd}", flush=True)
-            if not (loss_ok and grads_ok and fwd == 1 and bwd == 0):
+                  f"{GRAD_ATOL}), launches forward {fwd} ({tc_fwd} on the tensor cores) "
+                  f"backward {bwd}", flush=True)
+            if not (loss_ok and grads_ok and fwd == 1 and tc_fwd == 1 and bwd == 0):
                 fail(f"fused_block_trainable(packed={packed}) at {shape} is wrong")
     return {"fused_denoising_block": fused_denoising_block.launches,
-            "fused_denoising_block_packed": fused_denoising_block_packed.launches,
+            "fused_denoising_block_packed": {"all": fused_denoising_block_packed.launches,
+                                             "tc": fused_denoising_block_packed.tc_launches},
             "max_grad_err": max_err}
 
 
@@ -838,70 +884,92 @@ def main():
             "library_ms": None,
         }
 
-    def tc_variant(dtype, short):
-        """Kernel 1's tensor-core variant in one dtype, per forward, with the
+    def tc_variant(recs, shapes, dtype, source, cuda_core_source):
+        """One kernel's tensor-core variant in one dtype, per forward, with the
         CUDA-core kernel on the same inputs beside it."""
-        rows = per_forward(records, SLICE_SHAPES, dtype)
-        out = {"variant": "tc", "dtype": dtype,
-               "source": "vub_image_denoising_tpu_torch/csrc/fused_block_tc.cu",
-               "launches": train_launches[short]["tc"],
-               **timing(records, SLICE_SHAPES, dtype),
-               "microbatch_ms": timing(records, MB2_SHAPES, dtype)["ms"],
+        rows = per_forward(recs, shapes, dtype)
+        out = {"variant": "tc", "dtype": dtype, "source": CSRC + source,
+               **timing(recs, shapes, dtype),
                "cuda_core": {
-                   "source": "vub_image_denoising_tpu_torch/csrc/fused_block.cu",
+                   "source": CSRC + cuda_core_source,
                    "ms": sum(r["cuda_core_ms"] * cnt for r, cnt in rows),
-                   "max_abs_err": max(r["cuda_core_max_abs_err"] for r in records
+                   "max_abs_err": max(r["cuda_core_max_abs_err"] for r in recs
                                       if r["dtype"] == dtype and "cuda_core_max_abs_err" in r)}}
         if dtype == "float32":
             out["products"] = "3xTF32: three TF32 mma.sync products per multiply-add"
-            out["cuda_core"]["bound_ms"] = sum(r["cuda_core_bound_ms"] * cnt for r, cnt in rows)
         return out
 
-    variants = [tc_variant("float32", "f32"), tc_variant("bfloat16", "bf16")]
-    for v in variants:
-        print(f"blocks RDUNet-32 8x256x256 {v['dtype']}: 14 blocks {v['ms']:.3f} ms on the tensor "
+    variants, packed_variants = [], []
+    for dtype, short in (("float32", "f32"), ("bfloat16", "bf16")):
+        v = tc_variant(records, SLICE_SHAPES, dtype, "fused_block_tc.cu", "fused_block.cu")
+        v["launches"] = train_launches[short]["tc"]
+        v["microbatch_ms"] = timing(records, MB2_SHAPES, dtype)["ms"]
+        if dtype == "float32":
+            v["cuda_core"]["bound_ms"] = sum(r["cuda_core_bound_ms"] * cnt for r, cnt
+                                             in per_forward(records, SLICE_SHAPES, dtype))
+        variants.append(v)
+        print(f"blocks RDUNet-32 8x256x256 {dtype}: 14 blocks {v['ms']:.3f} ms on the tensor "
               f"cores (bound {v['bound_ms']:.3f} ms), CUDA-core kernel {v['cuda_core']['ms']:.3f} "
               f"ms, plain {v['plain_ms']:.3f} ms; max_abs_err vs plain {v['max_abs_err']:.3e}",
               flush=True)
+        v = tc_variant(packed_records, PACKED_SHAPES, dtype, "fused_block_packed_tc.cu",
+                       "fused_block_packed.cu")
+        v["kernel1_ms"] = sum(r["kernel1_ms"] * cnt
+                              for r, cnt in per_forward(packed_records, PACKED_SHAPES, dtype))
+        v["kernel1_max_abs_diff"] = max(r["kernel1_max_abs_diff"] for r in packed_records
+                                        if r["dtype"] == dtype)
+        packed_variants.append(v)
+        print(f"packed blocks RDUNet-32 8x256x256 {dtype}: 12 blocks {v['ms']:.3f} ms on the "
+              f"tensor cores (bound {v['bound_ms']:.3f} ms), kernel 1 {v['kernel1_ms']:.3f} ms, "
+              f"CUDA-core kernel 2 {v['cuda_core']['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms; "
+              f"max_abs_err vs plain {v['max_abs_err']:.3e}, unpacked vs kernel 1 "
+              f"{v['kernel1_max_abs_diff']}", flush=True)
+
+    def per_shape(recs, keys):
+        return [{k: r[k] for k in ("shape", "kind", "dtype", "variant", "ms", "plain_ms",
+                                   "bound_ms", "tile", *keys) if k in r}
+                for r in recs if "ms" in r]
+
     kernels = [
         {
             "name": "fused_denoising_block",
             "route": "cuda",
-            "source": "vub_image_denoising_tpu_torch/csrc/fused_block_tc.cu",
+            "source": CSRC + "fused_block_tc.cu",
             "replaces": "vub_image_denoising_tpu/ops/fused_block.py:193",
             "launches": train_launches["tc"],
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
             "variants": variants,
-            "per_shape": [{k: r[k] for k in ("shape", "kind", "dtype", "variant", "ms",
-                                             "plain_ms", "bound_ms", "tile")}
-                          | {k: r[k] for k in ("cuda_core_ms", "cuda_core_bound_ms",
-                                               "cuda_core_max_abs_err", "tile_sweep_ms")
-                             if k in r}
-                          for r in records if "ms" in r],
+            "per_shape": per_shape(records, ("cuda_core_ms", "cuda_core_bound_ms",
+                                             "cuda_core_max_abs_err", "tile_sweep_ms")),
             "launches_by_path": {"train": train_launches, "serve": serve_launches,
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
             "train_step_ms": step_ms,
             "train_step_breakdown": breakdowns,
+            "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc")},
             "card": card,
         },
         {
             "name": "fused_denoising_block_packed",
             "route": "cuda",
-            "source": "vub_image_denoising_tpu_torch/csrc/fused_block_packed.cu",
+            "source": CSRC + "fused_block_packed_tc.cu",
             "replaces": "vub_image_denoising_tpu/ops/fused_block.py:360",
-            "launches": trainable["fused_denoising_block_packed"],
-            **timing(packed_records, PACKED_SHAPES, "bfloat16"),
+            "launches": trainable["fused_denoising_block_packed"]["tc"],
+            **timing(packed_records, PACKED_SHAPES, "float32"),
             "work": "the 12 blocks at c <= 128 of one RDUNet-32 forward, batch 8, "
-                    "256x256, bf16, run packed",
+                    "256x256, run packed, f32 (tensor-core variant, 3xTF32); bf16 under "
+                    "variants",
+            "variants": packed_variants,
+            "per_shape": per_shape(packed_records, ("kernel1_ms", "kernel1_max_abs_diff",
+                                                    "cuda_core_ms", "cuda_core_max_abs_err")),
             "launches_by_path": {"trainable_block": trainable["fused_denoising_block_packed"]},
             "trainable_max_grad_err": trainable["max_grad_err"],
+            "ptxas": {lib: ptxas[lib] for lib in ("fused_block_packed", "fused_block_packed_tc")},
             "card": card,
         },
     ]
-    kernels[0]["ptxas"] = ptxas
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -292,3 +292,109 @@ def test_cuda_core_kernel_f32_at_tc_widths(cuda, shape):
     """The CUDA-core kernel's f32 build, forced at widths the wrapper sends
     to the tensor cores: the same arithmetic serves f32 at every other width."""
     _cuda_core_at_tc_width(shape, cuda, "float32")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core variant of kernel 2 (csrc/fused_block_packed_tc.cu): kernel
+# 1's tensor-core body with the packed pixel address, at c in TC_WIDTHS.
+# The same tolerances against its plain version; unpacked, its output must
+# equal kernel 1's on the same image bit for bit (the same products in the
+# same summation order).
+# ---------------------------------------------------------------------------
+
+def _packed_case(shape, device, dtype, seed=1):
+    """(params, packed params, x, pack2x2(x)) of a block at image shape ``shape``."""
+    params = _block(shape[1], device, seed=seed)
+    x = _input(shape, device, dtype, seed=seed + 1)
+    return params, fb.pack_block_params_packed(params), x, pack2x2(x)
+
+
+def _check_packed(yq, xq, pq):
+    want = fb.fused_denoising_block_packed_plain(xq.float(), pq)
+    assert yq.dtype == xq.dtype and yq.shape == xq.shape
+    assert bool(torch.isfinite(yq.float()).all())
+    if xq.dtype == torch.float32:
+        torch.testing.assert_close(yq, want, atol=1e-4, rtol=1e-4)
+    else:
+        assert (yq.float() - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 32, 38, 46), (1, 64, 20, 18), (1, 128, 14, 10),
+                                   (1, 256, 10, 12), (2, 256, 32, 32)])
+def test_cuda_packed_tc_kernel_matches_plain_and_kernel_1(cuda, shape, dtype):
+    """Even ragged images at every RDUNet-32 width, and the micro-batch-2
+    shape at c = 256; one tensor-core launch each."""
+    params, pq, x, xq = _packed_case(shape, cuda, dtype)
+    counter = fb.fused_denoising_block_packed
+    before, tc_before = counter.launches, counter.tc_launches
+    yq = counter(xq, pq)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.tc_launches) == (before + 1, tc_before + 1)
+    _check_packed(yq, xq, pq)
+    assert torch.equal(unpack2x2(yq), fb.fused_denoising_block(x, params))
+
+
+@pytest.mark.parametrize("dtype,c,tile", [
+    (dtype, c, t) for dtype, itemsize in (("float32", 4), ("bfloat16", 2))
+    for c in fb.TC_WIDTHS for t in fb.tc_tiles(c, itemsize)])
+def test_cuda_packed_tc_kernel_every_tile(cuda, dtype, c, tile):
+    """Each (dtype, c, tile) kernel 2 is built for, forced, on an even
+    ragged image, against kernel 1 forced to the same tile."""
+    params, pq, x, xq = _packed_case((1, c, 18, 14), cuda, dtype, seed=6)
+    launch = (*tile, fb.tc_smem_bytes(c, *tile, x.element_size()))
+    yq = fb._launch("fused_denoising_block_packed", fb._packed_tc_library(),
+                    "fused_block_packed_tc", xq, fb.kernel_weights_from_packed(pq, x.dtype),
+                    1, 18, 14, c, c // 2, launch)
+    y1 = fb._launch("fused_denoising_block", fb._tc_library(), "fused_block_tc", x,
+                    fb.pack_block_params(params, x.dtype, cuda), 1, 18, 14, c, c // 2, launch)
+    torch.cuda.synchronize()
+    _check_packed(yq, xq, pq)
+    assert torch.equal(unpack2x2(yq), y1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_packed_tc_kernel_border_padding(cuda, dtype):
+    params = _block(32, cuda, seed=2)
+    pq = fb.pack_block_params_packed(params)
+    x = torch.ones(1, 32, 24, 24, device=cuda, dtype=getattr(torch, dtype)).contiguous(
+        memory_format=torch.channels_last)
+    tc_before = fb.fused_denoising_block_packed.tc_launches
+    yq = fb.fused_denoising_block_packed(pack2x2(x), pq)
+    torch.cuda.synchronize()
+    assert fb.fused_denoising_block_packed.tc_launches == tc_before + 1
+    _check_packed(yq, pack2x2(x), pq)
+    y = unpack2x2(yq)
+    assert torch.equal(y, fb.fused_denoising_block(x, params))
+    assert not torch.allclose(y[0, :, 0, 12].float(), y[0, :, 12, 12].float(), atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 1), ("bfloat16", 64, 1),
+                                         ("float32", 16, 0), ("bfloat16", 16, 0),
+                                         ("float32", 512, 0), ("bfloat16", 512, 0)])
+def test_cuda_packed_variant_counters(cuda, dtype, c, tc):
+    """Kernel 2 at c in TC_WIDTHS counts as a tensor-core launch; at c = 16
+    and 512 it launches fused_block_packed.cu on the CUDA cores.  Each
+    output is held against the plain version."""
+    _, pq, _, xq = _packed_case((1, c, 10, 12), cuda, dtype)
+    counter = fb.fused_denoising_block_packed
+    before, tc_before = counter.launches, counter.tc_launches
+    yq = counter(xq, pq)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.tc_launches) == (before + 1, tc_before + tc)
+    _check_packed(yq, xq, pq)
+
+
+@pytest.mark.parametrize("variant", ["tc", "cuda_core"])
+def test_cuda_packed_kernels_reject_an_odd_side(cuda, variant):
+    """The packed layout needs an even image: both kernel 2 entries refuse an
+    odd height, and the wrapper raises."""
+    _, pq, _, xq = _packed_case((1, 32, 8, 8), cuda, "float32")
+    kw = fb.kernel_weights_from_packed(pq, torch.float32)
+    if variant == "tc":
+        lib, prefix = fb._packed_tc_library(), "fused_block_packed_tc"
+        tile = (4, 4, fb.tc_smem_bytes(32, 4, 4, 4))
+    else:
+        lib, prefix, tile = fb._packed_library(), "fused_block_packed", None
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fb._launch("fused_denoising_block_packed", lib, prefix, xq, kw, 1, 7, 8, 32, 16, tile)

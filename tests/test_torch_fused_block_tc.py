@@ -1,7 +1,8 @@
-"""The tensor-core variant of the port's DenoisingBlock kernel: its tile
-picker, the static rule that sends a launch to it, and why its f32 path
-takes three TF32 products, decided without a card.  The kernel itself runs
-only on the card (tests/test_torch_cuda.py)."""
+"""The tensor-core variant of the port's DenoisingBlock kernels (kernel 1,
+and kernel 2 on the packed layout): its tile picker, the static rule that
+sends a launch to it, and why its f32 path takes three TF32 products,
+decided without a card.  The kernels themselves run only on the card
+(tests/test_torch_cuda.py)."""
 
 import re
 from pathlib import Path
@@ -15,6 +16,7 @@ from vub_image_denoising_tpu_torch.nn.blocks import DenoisingBlock
 from vub_image_denoising_tpu_torch.ops import fused_block as fb
 
 TC_SOURCE = (Path(fb.__file__).resolve().parent.parent / "csrc" / "fused_block_tc.cu")
+PACKED_TC_SOURCE = TC_SOURCE.with_name("fused_block_packed_tc.cu")
 # (N, C, H, W) of the RDUNet-32 blocks: a batch of 8 served, a micro-batch of 2 trained
 RDUNET32_SHAPES = [(n, c, 8192 // c, 8192 // c) for n in (8, 2) for c in (32, 64, 128, 256)]
 H100_SMS = 132  # H100 SXM; the wrapper passes the card's own count (fb.sm_count)
@@ -87,11 +89,49 @@ def test_tc_smem_formula_f32():
     assert fb.tc_tiles(32, 4) == [(16, 16), (8, 8), (4, 4)]
 
 
+def _built_cases(source):
+    return {(m[0], *map(int, m[1:])) for m in re.findall(
+        r"X\((bf16|f32), (\d+), (\d+), (\d+)\)", source.read_text())}
+
+
+def _pickable_cases():
+    return {(name, c, *t) for name, itemsize in (("bf16", 2), ("f32", 4))
+            for c in fb.TC_WIDTHS for t in fb.tc_tiles(c, itemsize)}
+
+
 def test_tc_source_builds_every_tile_the_picker_may_pick():
-    cases = {(m[0], *map(int, m[1:])) for m in re.findall(
-        r"X\((bf16|f32), (\d+), (\d+), (\d+)\)", TC_SOURCE.read_text())}
-    assert cases == {(name, c, *t) for name, itemsize in (("bf16", 2), ("f32", 4))
-                     for c in fb.TC_WIDTHS for t in fb.tc_tiles(c, itemsize)}
+    assert _built_cases(TC_SOURCE) == _pickable_cases()
+
+
+def test_packed_tc_source_builds_every_tile_the_picker_may_pick():
+    """Kernel 2's tensor-core library instantiates the shared body
+    (fused_block_tc.cuh) at kernel 1's cases, with the packed layout."""
+    text = PACKED_TC_SOURCE.read_text()
+    assert _built_cases(PACKED_TC_SOURCE) == _pickable_cases()
+    assert "tc_try<T_, C_, TH_, TW_, true>" in text
+    assert "tc_try<T_, C_, TH_, TW_, false>" in TC_SOURCE.read_text()
+
+
+@pytest.mark.parametrize("shape", RDUNET32_SHAPES)
+def test_packed_tile_is_kernel_1s_at_the_unpacked_shape(shape):
+    """Kernel 2 on the even-packed (n, 4c, h/2, w/2) launches what kernel 1
+    launches on (n, c, h, w): the tensor-core variant, the same tile and
+    shared memory, in both dtypes."""
+    n, c, h, w = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        for sms in (H100_SMS, 114):
+            got = fb.packed_block_tile(dtype, n, 4 * c, h // 2, w // 2, sms)
+            assert got == fb.block_tile(dtype, n, c, h, w, sms)
+            assert got[0] == "tc"
+
+
+@pytest.mark.parametrize("c", [16, 512])
+def test_packed_tile_outside_tc_widths_stays_on_the_cuda_cores(c):
+    for dtype in (torch.bfloat16, torch.float32):
+        variant, th, tw, smem = fb.packed_block_tile(dtype, 1, 4 * c, 5, 6, H100_SMS)
+        assert variant == "cuda_core"
+        assert (th, tw) == fb.pick_tile(c // 2, dtype.itemsize)
+        assert smem == fb.smem_bytes(c // 2, th, tw, dtype.itemsize)
 
 
 @pytest.mark.parametrize("dtype,c,want", [
@@ -116,6 +156,19 @@ def test_cpu_input_runs_the_plain_version_and_counts_no_launch():
     y = fb.fused_denoising_block(x, params)
     assert (fb.fused_denoising_block.launches, fb.fused_denoising_block.tc_launches) == before
     torch.testing.assert_close(y, fb.fused_denoising_block_plain(x, params), rtol=0, atol=0)
+
+
+def test_cpu_packed_input_runs_the_plain_version_and_counts_no_launch():
+    from vub_image_denoising_tpu_torch.ops.packing import pack2x2
+
+    block = DenoisingBlock(32, 16, 32, generator=torch.Generator().manual_seed(0))
+    pq = fb.pack_block_params_packed({k: v.detach() for k, v in block.named_parameters()})
+    xq = pack2x2(torch.randn(1, 32, 6, 4, generator=torch.Generator().manual_seed(1)))
+    counter = fb.fused_denoising_block_packed
+    before = (counter.launches, counter.tc_launches)
+    yq = counter(xq, pq)
+    assert (counter.launches, counter.tc_launches) == before
+    torch.testing.assert_close(yq, fb.fused_denoising_block_packed_plain(xq, pq), rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

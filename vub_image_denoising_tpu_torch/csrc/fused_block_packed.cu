@@ -19,8 +19,9 @@
 // packed border is exactly the unpacked one.
 //
 // Bound on an H100 SXM: the same 85.5*c^2*H*W*N FLOP and the same bytes as
-// kernel 1, so compute-bound.  Like kernel 1 this first version runs on CUDA
-// cores with f32 FMA.
+// kernel 1, so compute-bound.  This kernel runs on the CUDA cores with f32
+// FMA and serves the widths outside TC_WIDTHS (c = 16, 512, ...); at
+// c in {32, 64, 128, 256} the wrapper launches fused_block_packed_tc.cu.
 
 #include <cuda_runtime.h>
 

@@ -43,8 +43,11 @@ version only for a tensor on the CPU; for a CUDA tensor it launches the kernel
 or raises.
 
 ``fused_denoising_block_packed`` is the same block on the 2x2 even-packed
-layout of ``ops/packing.py`` (kernel 2, ``csrc/fused_block_packed.cu``); see
-its docstring.
+layout of ``ops/packing.py`` (kernel 2), by the same static rule: at c in
+``TC_WIDTHS`` the same tensor-core body with the packed pixel address
+(``csrc/fused_block_packed_tc.cu``, from ``csrc/fused_block_tc.cuh``, as
+kernel 1's ``csrc/fused_block_tc.cu`` is), at other widths
+``csrc/fused_block_packed.cu`` on the CUDA cores; see its docstring.
 """
 
 import ctypes
@@ -210,7 +213,8 @@ def _library():
 
 
 def _tc_library():
-    lib = load_library("fused_block_tc", "fused_block_tc.cu", ("fused_block.cuh",))
+    lib = load_library("fused_block_tc", "fused_block_tc.cu",
+                       ("fused_block.cuh", "fused_block_tc.cuh"))
     _declare(lib, "fused_block_tc")
     return lib
 
@@ -218,6 +222,13 @@ def _tc_library():
 def _packed_library():
     lib = load_library("fused_block_packed", "fused_block_packed.cu", ("fused_block.cuh",))
     _declare(lib, "fused_block_packed")
+    return lib
+
+
+def _packed_tc_library():
+    lib = load_library("fused_block_packed_tc", "fused_block_packed_tc.cu",
+                       ("fused_block.cuh", "fused_block_tc.cuh"))
+    _declare(lib, "fused_block_packed_tc")
     return lib
 
 
@@ -349,6 +360,13 @@ def pack_block_params_packed(params):
     return out
 
 
+def packed_block_tile(dtype, n: int, c4: int, hq: int, wq: int, sms: int):
+    """(variant, th, tw, shared-memory bytes) of kernel 2's launch at an
+    even-packed (n, c4, hq, wq) input: ``block_tile`` of the unpacked
+    (n, c4/4, 2hq, 2wq) image, since the kernels tile image coordinates."""
+    return block_tile(dtype, n, c4 // 4, 2 * hq, 2 * wq, sms)
+
+
 def packed_block_dims(packed_params):
     """(c, inner) of the unpacked block that ``packed_params`` describe."""
     k4, n16 = packed_params["conv_0.weight"].shape
@@ -430,9 +448,14 @@ def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
     pack_block_params_packed(p))) == fused_denoising_block(x, p)``.
 
     On a CPU tensor this is ``fused_denoising_block_packed_plain``.  On a CUDA
-    tensor it launches ``csrc/fused_block_packed.cu``, which addresses the
-    packed layout by index and computes the nine 3x3 taps (kernel 1's halo
-    pyramid).  ``kernel_weights`` is ``kernel_weights_from_packed(
+    tensor it launches a kernel that addresses the packed layout by index and
+    computes the nine 3x3 taps of kernel 1, by kernel 1's static rule
+    (``packed_block_tile``): f32 or bf16 with c in ``TC_WIDTHS`` launches
+    ``csrc/fused_block_packed_tc.cu``, kernel 1's tensor-core body with the
+    packed pixel address, whose unpacked output equals kernel 1's bit for
+    bit (counted in ``.tc_launches``); other widths launch
+    ``csrc/fused_block_packed.cu`` on the CUDA cores.  Every launch counts in
+    ``.launches``.  ``kernel_weights`` is ``kernel_weights_from_packed(
     packed_params, xq.dtype)``, which callers cache per parameter version (it
     is gathered here when omitted).  No backward, like kernel 1."""
     name = "fused_denoising_block_packed"
@@ -452,13 +475,20 @@ def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
     if kernel_weights is None:
         kernel_weights = kernel_weights_from_packed(packed_params, xq.dtype)
     _check_kernel_weights(name, kernel_weights, xq, c, inner)
-    y = _launch(name, _packed_library(), "fused_block_packed", xq, kernel_weights,
-                n, 2 * hq, 2 * wq, c, inner)
+    variant, th, tw, smem = packed_block_tile(xq.dtype, n, 4 * c, hq, wq, sm_count(xq.device))
+    if variant == "tc":
+        y = _launch(name, _packed_tc_library(), "fused_block_packed_tc", xq, kernel_weights,
+                    n, 2 * hq, 2 * wq, c, inner, (th, tw, smem))
+        fused_denoising_block_packed.tc_launches += 1
+    else:
+        y = _launch(name, _packed_library(), "fused_block_packed", xq, kernel_weights,
+                    n, 2 * hq, 2 * wq, c, inner, (th, tw, smem))
     fused_denoising_block_packed.launches += 1
     return y
 
 
-fused_denoising_block_packed.launches = 0  # kernel launches since the last reset
+fused_denoising_block_packed.launches = 0  # kernel launches (both variants) since the last reset
+fused_denoising_block_packed.tc_launches = 0  # of those, tensor-core launches
 
 
 def pad_block_params(params, cpad):
