@@ -20,6 +20,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    serves them at other widths.  Times both kernels in both dtypes at the
    batch-8 and micro-batch shapes beside each shape's bound, tile and thread
    blocks, and sweeps the tensor-core tiles at the micro-batch shapes.
+   The same checks and times at the four batch-16 shapes of the diffusion
+   sampler's 2N stack (step 9).
 4. Holds kernel 2 against its plain version at the packed shapes of the
    RDUNet-32 blocks at c <= 128, a ragged and a border case, f32 and bf16;
    each launch must be a tensor-core launch, and its output, unpacked, must
@@ -45,13 +47,28 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    Times a step on each engine
    and splits a "pallas" step into forward blocks, glue, backward recompute,
    the rest of the backward, and the optimizer.
+9. Serves a random-weight RDUNetT-32 (seeded, saved with ``unet.`` keys)
+   with ``arch="diffusion"`` and T = 20 the same way, bf16 and f32: every
+   dispatched batch launches kernel 1 14*T times, all on the tensor cores;
+   the served f32 output matches the same sampler through the plain version
+   on the CPU (to SERVED_SAMPLER_F32_TOL), bf16 matches f32.  Times the
+   sampler per batch of 8, one RDUNetT forward at batch 16 (the 2N stack),
+   the sampler's host share (1 - T * forward(16) / sampler) and the served
+   latency.
+10. Trains: ``DiffusionTrainer(engine="pallas")`` on RDUNetT-32, 8 x 3 x
+   256^2 super-batches, accumulation 4, AdamW + StepLR + clip 0.1, 3 steps
+   in f32 and in bf16: 56 kernel launches per step, all on the tensor cores,
+   finite losses, one f32 SGD step against ``engine="xla"`` with the same
+   timesteps, and one ``validate`` (a full sampler pass).  Times a step on
+   each engine.
 
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
 failure, and when CUDA or the port's package is missing.
 
 With ``--profile`` it runs steps 1, 2 and then only ``profile_main``: the
-train phase's step, "pallas" and "xla", bf16 and f32, timed and traced with
+train phase's step, "pallas" and "xla", bf16 and f32, and one served batch
+of the diffusion sampler in each dtype, timed and traced with
 torch.profiler in a fresh process (device-busy time, idle share, the top
 kernels), ending with one JSON line of those numbers.
 """
@@ -59,6 +76,7 @@ kernels), ending with one JSON line of those numbers.
 import concurrent.futures
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -77,6 +95,11 @@ SLICE_SHAPES = [((8, 32, 256, 256), 4), ((8, 64, 128, 128), 4),
 # The same blocks at micro-batch 2: a train step on 8 x 256^2 with accumulation 4.
 MB2_SHAPES = [((2, 32, 256, 256), 4), ((2, 64, 128, 128), 4),
               ((2, 128, 64, 64), 4), ((2, 256, 32, 32), 2)]
+# The diffusion sampler: each of its T steps runs RDUNetT-32 on the 2N stack,
+# so a served batch of 8 runs these blocks at batch 16.
+TIMESTEPS = 20
+B16_SHAPES = [((16, 32, 256, 256), 4), ((16, 64, 128, 128), 4),
+              ((16, 128, 64, 64), 4), ((16, 256, 32, 32), 2)]
 RAGGED_SHAPE = (2, 64, 37, 45)
 BORDER_SHAPE = (1, 32, 24, 24)
 # Kernel 2: the unpacked shapes of the RDUNet-32 blocks at c <= 128 (packed:
@@ -95,6 +118,9 @@ F32_TOL = 1e-4          # atol and rtol: summation order (and 3xTF32 splits) dif
 BF16_REL_TOL = 2e-2     # max |kernel_bf16 - plain_f32| <= this * max |plain_f32|
 SERVED_F32_TOL = 2e-4   # served f32 forward vs the plain forward on the CPU
 SERVED_BF16_REL_TOL = 5e-2  # served bf16 vs served f32, relative to max |y_f32|
+# The served f32 sampler vs the plain sampler on the CPU: its output sums
+# (1 - alpha)-weighted differences of 2T forwards, each held to SERVED_F32_TOL.
+SERVED_SAMPLER_F32_TOL = 2 * TIMESTEPS * SERVED_F32_TOL
 # H100 SXM dense peaks: bf16 and TF32 on the tensor cores, f32 FMA on the CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -185,7 +211,8 @@ def held(torch, plain, y, x, ref32):
 
 
 def check_kernel(torch, device):
-    """Kernel 1 vs its plain version at every shape; returns per-shape records.
+    """Kernel 1 vs its plain version at every shape (batch 8, micro-batch 2,
+    the sampler's batch 16, ragged, border); returns per-shape records.
     Each launch at c in TC_WIDTHS, f32 or bf16, must go to the tensor-core
     variant; the CUDA-core kernel is also held, and timed, on the same
     inputs."""
@@ -193,6 +220,7 @@ def check_kernel(torch, device):
 
     records = []
     cases = ([(s, "slice") for s, _ in SLICE_SHAPES] + [(s, "microbatch") for s, _ in MB2_SHAPES]
+             + [(s, "sampler") for s, _ in B16_SHAPES]
              + [(RAGGED_SHAPE, "ragged"), (BORDER_SHAPE, "border")])
     for shape, kind in cases:
         n, c, h, w = shape
@@ -233,7 +261,7 @@ def check_kernel(torch, device):
                 if not ok:
                     fail(f"the CUDA-core kernel disagrees with its plain version at {shape} "
                          f"{name}")
-            if kind in ("slice", "microbatch"):
+            if kind in ("slice", "microbatch", "sampler"):
                 iters = 5 if c == 32 and variant == "cuda_core" else 10
                 rec["ms"] = cuda_ms(torch, lambda: fb.fused_denoising_block(x, params, packed),
                                     iters)
@@ -288,15 +316,15 @@ def http(url, data=None, headers=None):
         return r.status, dict(r.headers), r.read()
 
 
-def start_server(ck, bf16):
+def start_server(ck, bf16, arch):
     from vub_image_denoising_tpu_torch.eval.denoise_cli import build_denoiser
     from vub_image_denoising_tpu_torch.eval.serve import (BatchingDenoiseService,
                                                           device_name, make_server)
 
-    denoise_fn = build_denoiser(ck, "rdunet", BASE_FILTERS, bf16=bf16, batched=True)
+    denoise_fn = build_denoiser(ck, arch, BASE_FILTERS, TIMESTEPS, bf16=bf16, batched=True)
     service = BatchingDenoiseService(denoise_fn, max_batch=8)
     service.prewarm((IMAGE_SIZE, IMAGE_SIZE, 3))
-    info = {"arch": "rdunet", "base_filters": BASE_FILTERS, "bf16": bf16, "max_batch": 8,
+    info = {"arch": arch, "base_filters": BASE_FILTERS, "bf16": bf16, "max_batch": 8,
             "devices": [device_name("cuda")]}
     server = make_server(service, info, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -305,21 +333,25 @@ def start_server(ck, bf16):
 
 
 def drive(base, images):
-    """8 concurrent raw requests, one PNG request, /healthz."""
+    """8 concurrent raw requests, one PNG request (of the first image),
+    /healthz.  Returns the raw responses, the PNG response, /healthz, and
+    each request's latency on the client, ms."""
     import numpy as np
     from PIL import Image
 
-    results, errors = [None] * len(images), []
+    results, errors, latency_ms = [None] * len(images), [], []
 
     def fire(i):
         try:
             shape = images[i].shape
+            t0 = time.perf_counter()
             status, hdr, body = http(f"{base}/denoise", images[i].tobytes(), {
                 "Content-Type": "application/octet-stream",
                 "X-Shape": ",".join(map(str, shape)), "Accept": "application/octet-stream"})
             if (status != 200 or hdr.get("X-Shape") != ",".join(map(str, shape))
                     or len(body) != images[i].size):
                 raise ValueError(f"bad raw response {status} {hdr.get('X-Shape')} {len(body)}")
+            latency_ms.append((time.perf_counter() - t0) * 1e3)
             results[i] = np.frombuffer(body, np.uint8).reshape(shape)
         except Exception as e:  # noqa: BLE001 — reported below, fails the run
             errors.append(repr(e))
@@ -333,24 +365,28 @@ def drive(base, images):
         fail(f"raw requests failed: {errors}")
     buf = io.BytesIO()
     Image.fromarray(images[0]).save(buf, format="PNG")
+    t0 = time.perf_counter()
     status, hdr, body = http(f"{base}/denoise", buf.getvalue())
+    latency_ms.append((time.perf_counter() - t0) * 1e3)
     png = np.asarray(Image.open(io.BytesIO(body)))
     if status != 200 or hdr.get("Content-Type") != "image/png" or png.shape != images[0].shape:
         fail(f"bad PNG response {status} {hdr.get('Content-Type')} {png.shape}")
-    if np.abs(png.astype(int) - results[0].astype(int)).max() > 1:
-        fail("PNG and raw responses to the same image differ")
     _, _, body = http(f"{base}/healthz")
-    return results, json.loads(body)
+    return results, png, json.loads(body), latency_ms
 
 
-def serve_main_path(torch, ck):
+def serve_main_path(torch, ck, arch="rdunet"):
+    """Serves ``ck`` in bf16 and f32 and checks it (module docstring, steps 5
+    and 9).  Returns the kernel-1 launches of the run, all and tensor-core,
+    and the client latencies, per dtype."""
     import numpy as np
 
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
 
+    per_batch = 14 * (TIMESTEPS if arch == "diffusion" else 1)
     rng = np.random.RandomState(0)
     images = [rng.randint(0, 256, (IMAGE_SIZE, IMAGE_SIZE, 3), np.uint8) for _ in range(8)]
-    runs = {bf16: start_server(ck, bf16) for bf16 in (True, False)}
+    runs = {bf16: start_server(ck, bf16, arch) for bf16 in (True, False)}
     try:
         for _, service, _, _ in runs.values():
             service.reset_stats()
@@ -359,42 +395,68 @@ def serve_main_path(torch, ck):
         launches = fused_denoising_block.launches
         tc_launches = fused_denoising_block.tc_launches
         batches = sum(s.stats["batches"] for _, s, _, _ in runs.values())
-        for bf16, (results, health) in outs.items():
+        latency = {}
+        for bf16, (_, _, health, lat) in outs.items():
             b = health["batching"]
-            print(f"served {'bf16' if bf16 else 'f32'}: {b}, device {health['devices']}, "
-                  f"latency {health['latency']}", flush=True)
+            name = "bf16" if bf16 else "f32"
+            latency[name] = {"median_ms": float(np.median(lat)), "max_ms": max(lat)}
+            print(f"served {arch} {name}: {b}, device {health['devices']}, "
+                  f"latency {health['latency']}; on the client median "
+                  f"{latency[name]['median_ms']:.2f} ms, max {latency[name]['max_ms']:.2f} ms",
+                  flush=True)
             if b["requests"] != 9 or b["rejected"] != 0:
                 fail(f"healthz batching counters wrong: {b}")
-        print(f"main path: {launches} kernel launches for {batches} dispatched batches "
+        print(f"main path ({arch}): {launches} kernel launches for {batches} dispatched batches "
               f"(bf16 {runs[True][1].stats['batches']}, f32 {runs[False][1].stats['batches']}), "
               f"{tc_launches} of them on the tensor cores", flush=True)
-        if launches != 14 * batches or min(s.stats["batches"] for _, s, _, _ in runs.values()) == 0:
-            fail(f"expected 14 launches per batch, got {launches} for {batches}")
+        if (launches != per_batch * batches
+                or min(s.stats["batches"] for _, s, _, _ in runs.values()) == 0):
+            fail(f"expected {per_batch} launches per batch, got {launches} for {batches}")
         if tc_launches != launches:
             fail(f"expected every launch on the tensor cores, got {tc_launches} of {launches}")
 
-        # served outputs vs references, on the same 8 images
+        # served outputs vs references, on the same 8 images.  Bytes may differ
+        # by 1 level of rounding; the bf16 sampler's output also moves with the
+        # batch it ran in (the PNG request runs alone, the raw ones together),
+        # by bf16 rounding carried through 2T forwards, so there it is held to
+        # the bf16 bound, SERVED_BF16_REL_TOL * max|y_f32|, in levels of 255.
         x = np.stack(images).astype(np.float32) / 255.0 * 2.0 - 1.0
         y32 = runs[False][2](x)
         y16 = runs[True][2](x)
-        for name, y, (served, _) in (("f32", y32, outs[False]), ("bf16", y16, outs[True])):
+        scale = float(np.abs(y32).max())
+        levels = {"f32": 1, "bf16": 1}
+        if arch == "diffusion":
+            levels["bf16"] = max(1, math.ceil(SERVED_BF16_REL_TOL * scale * 127.5))
+        for name, y, (served, png, _, _) in (("f32", y32, outs[False]),
+                                             ("bf16", y16, outs[True])):
             q = np.clip((y + 1.0) * 0.5 * 255.0 + 0.5, 0, 255).astype(np.uint8)
-            if not np.isfinite(y).all() or np.abs(q.astype(int) - np.stack(served)).max() > 1:
+            d_png = int(np.abs(png.astype(int) - served[0].astype(int)).max())
+            d_served = int(np.abs(q.astype(int) - np.stack(served)).max())
+            print(f"served {arch} {name} bytes: PNG vs raw response to the same image, max diff "
+                  f"{d_png}; raw responses vs the denoiser's output, max diff {d_served} "
+                  f"(tol {levels[name]})", flush=True)
+            if d_png > levels[name]:
+                fail(f"PNG and raw {name} responses to the same image differ")
+            if not np.isfinite(y).all() or d_served > levels[name]:
                 fail(f"served {name} bytes do not match the denoiser's output")
-        ref = reference_forward(torch, ck, x[:1])
+        if arch == "diffusion":
+            ref, what, tol = reference_sampler(torch, ck, x[:1]), "plain sampler", \
+                SERVED_SAMPLER_F32_TOL
+        else:
+            ref, what, tol = reference_forward(torch, ck, x[:1]), "plain forward", SERVED_F32_TOL
         err32 = float(np.abs(y32[:1] - ref).max())
         err16 = float(np.abs(y16 - y32).max())
-        scale = float(np.abs(y32).max())
-        print(f"served f32 vs plain forward on the CPU: max_abs_err {err32:.3e} "
-              f"(tol {SERVED_F32_TOL})", flush=True)
+        print(f"served f32 vs {what} on the CPU: max_abs_err {err32:.3e} (tol {tol})",
+              flush=True)
         print(f"served bf16 vs served f32: max_abs_err {err16:.3e}, mean "
               f"{float(np.abs(y16 - y32).mean()):.3e} (tol {SERVED_BF16_REL_TOL}*{scale:.3f})",
               flush=True)
-        if err32 > SERVED_F32_TOL:
-            fail("served f32 output disagrees with the plain forward")
+        if err32 > tol:
+            fail(f"served f32 output disagrees with the {what}")
         if err16 > SERVED_BF16_REL_TOL * scale:
             fail("served bf16 output too far from f32")
-        return {"all": launches, "tc": tc_launches}
+        return {"all": launches, "tc": tc_launches, "served_f32_max_abs_err": err32,
+                "served_bf16_max_abs_err": err16, "latency": latency}
     finally:
         for server, service, _, _ in runs.values():
             server.shutdown()
@@ -411,6 +473,49 @@ def reference_forward(torch, ck, x):
     with torch.inference_mode():
         y = model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
     return y.permute(0, 2, 3, 1).numpy()
+
+
+def reference_sampler(torch, ck, x):
+    """The diffusion checkpoint's T-step sampler through the plain version,
+    f32, on the CPU."""
+    from vub_image_denoising_tpu_torch.diffusion import InterpolationDiffusion
+    from vub_image_denoising_tpu_torch.models import RDUNetT
+    from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
+
+    model, _ = load_pth(ck, RDUNetT(BASE_FILTERS), prefix="unet.")
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        y = InterpolationDiffusion(TIMESTEPS).improved_sampling(
+            model.eval(), torch.from_numpy(x).permute(0, 3, 1, 2))
+    print(f"plain sampler on the CPU, {x.shape[0]} image(s), T = {TIMESTEPS}: "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return y.permute(0, 2, 3, 1).numpy()
+
+
+def time_sampler(torch, ck):
+    """Per dtype: the served sampler's time per batch of 8 at T = TIMESTEPS,
+    one RDUNetT forward at batch 16 (the 2N stack), and the sampler's host
+    share 1 - T * forward(16) / sampler."""
+    from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
+
+    out = {}
+    for bf16 in (True, False):
+        name, dtype = ("bf16", torch.bfloat16) if bf16 else ("f32", torch.float32)
+        forward, model = build_apply(ck, "diffusion", BASE_FILTERS, TIMESTEPS, bf16=bf16)
+        device = next(model.parameters()).device
+        x = torch.rand(8, IMAGE_SIZE, IMAGE_SIZE, 3, device=device) * 2 - 1
+        sampler_ms = cuda_ms(torch, lambda: forward(x), 2)
+        x16 = (torch.rand(16, 3, IMAGE_SIZE, IMAGE_SIZE, device=device) * 2 - 1).to(dtype)
+        x16 = x16.contiguous(memory_format=torch.channels_last)
+        t16 = torch.rand(16, device=device).to(dtype)
+        with torch.inference_mode():
+            fwd16_ms = cuda_ms(torch, lambda: model(x16, t16), 3)
+        out[name] = {"sampler_ms": sampler_ms, "forward16_ms": fwd16_ms,
+                     "host_share": 1 - TIMESTEPS * fwd16_ms / sampler_ms}
+        print(f"sampler RDUNetT-32 8x256x256 T={TIMESTEPS} {name}: {sampler_ms:.3f} ms per batch; "
+              f"forward at batch 16 {fwd16_ms:.3f} ms; host share "
+              f"{out[name]['host_share']:.4f}", flush=True)
+    return out
 
 
 def time_forward(torch, ck):
@@ -713,6 +818,95 @@ def compare_with_xla(torch, init, batch, adamw_params, adamw_loss):
         fail("the pallas train step disagrees with the xla step")
 
 
+def make_diffusion_trainer(torch, engine, dtype):
+    """RDUNetT-32 from seed 0 with the trainer's defaults (AdamW 1e-4, wd
+    1e-4, StepLR, clip 0.1); the timesteps' generator is seeded alike."""
+    from vub_image_denoising_tpu_torch.train import DiffusionTrainer
+
+    trainer = DiffusionTrainer(base_filters=BASE_FILTERS, timesteps=TIMESTEPS,
+                               accumulation_steps=ACCUMULATION, compute_dtype=dtype,
+                               engine=engine)
+    return trainer, trainer.init(steps_per_epoch=TRAIN_STEPS, seed=0)
+
+
+def diffusion_train_main_path(torch, device):
+    """DiffusionTrainer(engine="pallas") steps in f32 and bf16 and one f32
+    validate, checked; returns (kernel-1 launches of the run, all and
+    tensor-core, per-engine step times, the validation)."""
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
+
+    batches = make_batches(torch, device)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    fused_denoising_block.launches = fused_denoising_block.tc_launches = 0
+    validation = None
+    for name, dtype in dtypes.items():
+        trainer, state = make_diffusion_trainer(torch, "pallas", dtype)
+        for i, (noisy, clean) in enumerate(batches):
+            before = fused_denoising_block.launches
+            tc_before = fused_denoising_block.tc_launches
+            state, loss = trainer.train_step(state, noisy, clean)
+            step = fused_denoising_block.launches - before
+            tc = fused_denoising_block.tc_launches - tc_before
+            print(f"diffusion train pallas {name} step {i}: loss {loss.item():.6f}, {step} "
+                  f"kernel launches, {tc} on the tensor cores", flush=True)
+            if not bool(torch.isfinite(loss)) or step != 14 * ACCUMULATION or tc != step:
+                fail(f"diffusion train step {i} ({name}): loss {loss.item()}, {step} launches, "
+                     f"{tc} tensor-core launches (want {14 * ACCUMULATION} of each)")
+        if name == "f32":
+            before = fused_denoising_block.tc_launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vloss, denoised = trainer.validate(state, *batches[0])
+            torch.cuda.synchronize()
+            validation = {"loss": vloss, "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": fused_denoising_block.tc_launches - before}
+            print(f"diffusion validate f32 (T={TIMESTEPS} sampler on {TRAIN_BATCH} images): loss "
+                  f"{vloss:.6f}, {validation['ms']:.1f} ms, {validation['launches']} tensor-core "
+                  "launches", flush=True)
+            if (not math.isfinite(vloss) or tuple(denoised.shape) != tuple(batches[0][0].shape)
+                    or validation["launches"] != 14 * TIMESTEPS):
+                fail(f"diffusion validate: loss {vloss}, shape {tuple(denoised.shape)}, "
+                     f"{validation['launches']} launches (want {14 * TIMESTEPS})")
+    launches = {"all": fused_denoising_block.launches, "tc": fused_denoising_block.tc_launches}
+    compare_diffusion_with_xla(torch, batches[0])
+
+    step_ms = {}
+    for name, dtype in dtypes.items():
+        for engine in ("pallas", "xla", "flax"):
+            trainer, state = make_diffusion_trainer(torch, engine, dtype)
+            step_ms[f"{engine}_{name}"] = ms = cuda_ms(
+                torch, lambda: trainer.train_step(state, *batches[0]), 4, warmup=2)
+            print(f"diffusion train step RDUNetT-32 {TRAIN_BATCH}x256x256 acc {ACCUMULATION} "
+                  f"{engine} {name}: {ms:.2f} ms", flush=True)
+    return launches, step_ms, validation
+
+
+def compare_diffusion_with_xla(torch, batch):
+    """One f32 diffusion step on "pallas" against the same step on "xla":
+    the same weights and the same timesteps (each trainer's generator seeded
+    alike), accumulate -> clip 0.1 -> SGD(1e-2); losses to LOSS_RTOL, params
+    to STEP_RTOL / STEP_ATOL (see compare_with_xla)."""
+    from vub_image_denoising_tpu_torch.train import TrainState, make_diffusion_train_step
+
+    after, losses = {}, {}
+    for engine in ("pallas", "xla"):
+        trainer, state = make_diffusion_trainer(torch, engine, torch.float32)
+        opt = torch.optim.SGD(list(state.params.values()), lr=1e-2)
+        sgd = TrainState(state.params, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0),
+                         clip_norm=trainer.clip_norm)
+        _, loss = make_diffusion_train_step(trainer.unet_apply, trainer.diffusion, ACCUMULATION)(
+            sgd, trainer.generator, *(trainer.put(t) for t in batch))
+        losses[engine] = loss.item()
+        after[engine] = {k: v.detach() for k, v in state.params.items()}
+    worst = max(((v - after["pallas"][k]).abs() / (STEP_ATOL + STEP_RTOL * v.abs())).max().item()
+                for k, v in after["xla"].items())
+    print(f"diffusion SGD step, pallas vs xla: loss {losses['pallas']:.7f} vs "
+          f"{losses['xla']:.7f}; params worst |diff| / (atol {STEP_ATOL} + rtol {STEP_RTOL}*|p|) "
+          f"= {worst:.3f} (must be <= 1)", flush=True)
+    if abs(losses["pallas"] - losses["xla"]) > LOSS_RTOL * abs(losses["xla"]) or worst > 1:
+        fail("the pallas diffusion step disagrees with the xla step")
+
+
 def step_breakdown(torch, trainer, state, batch, step_ms):
     """Split one "pallas" step: forward (kernel-1 blocks, the rest), backward
     (the eager blocks' recompute, the rest), the optimizer (clip, AdamW,
@@ -817,10 +1011,42 @@ def profile_main(torch, device):
                   f"events); traced wall {rec['wall_ms_per_step']:.2f} ms, device busy "
                   f"{rec['device_busy_ms_per_step']:.2f} ms, idle share {rec['idle_share']:.3f}",
                   flush=True)
-            for k in rec["top_kernels"]:
-                print(f"    {k['ms_per_step']:9.3f} ms  x{k['launches_per_step']:<4d} {k['name']}",
-                      flush=True)
+            print_top_kernels(rec)
+    out.update(profile_sampler(torch))
     print(json.dumps({"profile": out}), flush=True)
+
+
+def print_top_kernels(rec):
+    for k in rec["top_kernels"]:
+        print(f"    {k['ms_per_step']:9.3f} ms  x{k['launches_per_step']:<4d} {k['name']}",
+              flush=True)
+
+
+def profile_sampler(torch):
+    """One served batch of 8 through the diffusion sampler (T = TIMESTEPS,
+    RDUNetT-32 from seed 0), bf16 and f32, traced: the card's busy time and
+    idle share, and the kernels by time (a layout copy per block would show
+    as a copy kernel launched 14*T times)."""
+    from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
+    from vub_image_denoising_tpu_torch.models import RDUNetT
+    from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "rdunet_t32.pth")
+        save_pth(ck, RDUNetT(BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict(),
+                 prefix="unet.")
+        for name, bf16 in (("bf16", True), ("f32", False)):
+            forward, model = build_apply(ck, "diffusion", BASE_FILTERS, TIMESTEPS, bf16=bf16)
+            x = torch.rand(8, IMAGE_SIZE, IMAGE_SIZE, 3,
+                           device=next(model.parameters()).device) * 2 - 1
+            rec = trace_steps(torch, lambda: forward(x), 1)
+            out[f"sampler_{name}"] = rec
+            print(f"profile sampler {name}: traced wall {rec['wall_ms_per_step']:.2f} ms per batch "
+                  f"of 8, device busy {rec['device_busy_ms_per_step']:.2f} ms, idle share "
+                  f"{rec['idle_share']:.3f}", flush=True)
+            print_top_kernels(rec)
+    return out
 
 
 def main():
@@ -835,7 +1061,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from vub_image_denoising_tpu_torch import enable_strict_precision
-        from vub_image_denoising_tpu_torch.models import RDUNet
+        from vub_image_denoising_tpu_torch.models import RDUNet, RDUNetT
         from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py ({e})")
@@ -867,10 +1093,18 @@ def main():
     trainable = check_trainable(torch, device)
     train_launches, step_ms, breakdowns = train_main_path(torch, device)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "rdunet_t32.pth")
+        save_pth(ck, RDUNetT(BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict(),
+                 prefix="unet.")
+        diffusion_serve_launches = serve_main_path(torch, ck, "diffusion")
+        sampler = time_sampler(torch, ck)
+    diffusion_train_launches, diffusion_step_ms, validation = diffusion_train_main_path(
+        torch, device)
+
     def per_forward(recs, shapes, dtype):
         return [(r, cnt) for r in recs for s, cnt in shapes
-                if r["kind"] in ("slice", "microbatch") and r["shape"] == s
-                and r["dtype"] == dtype]
+                if "ms" in r and r["shape"] == s and r["dtype"] == dtype]
 
     def timing(recs, shapes, dtype):
         rows = per_forward(recs, shapes, dtype)
@@ -904,6 +1138,7 @@ def main():
         v = tc_variant(records, SLICE_SHAPES, dtype, "fused_block_tc.cu", "fused_block.cu")
         v["launches"] = train_launches[short]["tc"]
         v["microbatch_ms"] = timing(records, MB2_SHAPES, dtype)["ms"]
+        v["sampler_batch16_ms"] = timing(records, B16_SHAPES, dtype)["ms"]
         if dtype == "float32":
             v["cuda_core"]["bound_ms"] = sum(r["cuda_core_bound_ms"] * cnt for r, cnt
                                              in per_forward(records, SLICE_SHAPES, dtype))
@@ -936,7 +1171,8 @@ def main():
             "route": "cuda",
             "source": CSRC + "fused_block_tc.cu",
             "replaces": "vub_image_denoising_tpu/ops/fused_block.py:193",
-            "launches": train_launches["tc"],
+            "launches": (serve_launches["tc"] + train_launches["tc"]
+                         + diffusion_serve_launches["tc"] + diffusion_train_launches["tc"]),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -944,10 +1180,17 @@ def main():
             "per_shape": per_shape(records, ("cuda_core_ms", "cuda_core_bound_ms",
                                              "cuda_core_max_abs_err", "tile_sweep_ms")),
             "launches_by_path": {"train": train_launches, "serve": serve_launches,
+                                 "diffusion_serve": diffusion_serve_launches,
+                                 "diffusion_train": diffusion_train_launches,
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
             "train_step_ms": step_ms,
             "train_step_breakdown": breakdowns,
+            "sampler": {"timesteps": TIMESTEPS, "batch": 8, **sampler,
+                        "batch16_blocks": {d: timing(records, B16_SHAPES, d)
+                                           for d in ("float32", "bfloat16")}},
+            "diffusion_train_step_ms": diffusion_step_ms,
+            "diffusion_validate": validation,
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc")},
             "card": card,
         },

@@ -398,3 +398,74 @@ def test_cuda_packed_kernels_reject_an_odd_side(cuda, variant):
         lib, prefix, tile = fb._packed_library(), "fused_block_packed", None
     with pytest.raises(RuntimeError, match="launch failed"):
         fb._launch("fused_denoising_block_packed", lib, prefix, xq, kw, 1, 7, 8, 32, 16, tile)
+
+
+# ---------------------------------------------------------------------------
+# The interpolation-diffusion sampler and trainer on RDUNetT: every block of
+# every step is a kernel-1 launch, on the tensor cores at base 32.  The f32
+# sampler is held to the eager engine's (cuDNN, TF32 off) at 2T times the
+# full-model tolerance 2e-4: its output sums differences of 2T forwards.
+# ---------------------------------------------------------------------------
+
+def _rdunet_t(cuda, base=32):
+    from vub_image_denoising_tpu_torch.models import RDUNetT
+
+    model = RDUNetT(base, generator=torch.Generator().manual_seed(0)).eval()
+    return model.to(cuda).to(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_sampler_launches_14_per_step_on_tensor_cores(cuda, dtype):
+    from vub_image_denoising_tpu_torch.diffusion import InterpolationDiffusion
+
+    steps = 3
+    model = _rdunet_t(cuda)
+    x = _input((2, 3, 32, 40), cuda, dtype)
+    counter = fb.fused_denoising_block
+    before, tc_before = counter.launches, counter.tc_launches
+    with torch.inference_mode():
+        y = InterpolationDiffusion(steps).improved_sampling(model, x)
+    torch.cuda.synchronize()
+    assert (counter.launches - before, counter.tc_launches - tc_before) == (14 * steps,) * 2
+    assert y.dtype == x.dtype and y.shape == x.shape and bool(torch.isfinite(y.float()).all())
+
+
+def test_cuda_f32_sampler_matches_the_eager_engine(cuda):
+    from vub_image_denoising_tpu_torch.diffusion import InterpolationDiffusion
+
+    steps = 3
+    model = _rdunet_t(cuda)
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    x = _input((2, 3, 32, 40), cuda, "float32")
+    diff = InterpolationDiffusion(steps)
+    with torch.inference_mode():
+        got = diff.improved_sampling(model, x)
+        want = diff.improved_sampling(lambda v, t: fa.rdunet_t_apply_fused(sd, v, t, engine="xla"),
+                                      x)
+    tol = 2 * steps * 2e-4
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("engine,launches", [("flax", 28), ("pallas", 28), ("xla", 0)])
+def test_cuda_diffusion_trainer_step(cuda, engine, launches):
+    """One DiffusionTrainer step on RDUNetT-32 per engine, from one seed:
+    14 launches per micro-batch on the kernel engines, none on "xla"; the
+    losses agree with the "xla" step's (the same weights and timesteps)."""
+    from vub_image_denoising_tpu_torch.train import DiffusionTrainer
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    clean = torch.rand(4, 3, 32, 32, generator=gen, device=cuda) * 2 - 1
+    noisy = clean + 0.2 * torch.randn(clean.shape, generator=gen, device=cuda)
+    losses = {}
+    for eng in (engine, "xla"):
+        trainer = DiffusionTrainer(base_filters=32, timesteps=4, accumulation_steps=2, engine=eng)
+        state = trainer.init(steps_per_epoch=1, seed=3)
+        counter = fb.fused_denoising_block
+        before, tc_before = counter.launches, counter.tc_launches
+        state, loss = trainer.train_step(state, noisy, clean)
+        torch.cuda.synchronize()
+        if eng == engine:
+            assert (counter.launches - before, counter.tc_launches - tc_before) == (launches,) * 2
+        losses[eng] = loss.item()
+        assert state.step == 1 and torch.isfinite(loss)
+    assert abs(losses[engine] - losses["xla"]) <= 1e-5 * abs(losses["xla"])

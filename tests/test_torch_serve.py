@@ -164,8 +164,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
         denoise_cli.build_denoiser(ck, base_filters=4, batched=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--checkpoint", ck, "--base-filters", "4"])
-    with pytest.raises(NotImplementedError, match="diffusion"):
-        denoise_cli.build_apply(ck, arch="diffusion", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        denoise_cli.build_apply(ck, arch="diffusion", base_filters=4)
+    with pytest.raises(KeyError, match="unet."):  # a supervised RDUNet checkpoint
+        denoise_cli.build_apply(ck, arch="diffusion", base_filters=4, device="cpu")
 
 
 def test_denoise_cli_main_writes_image(tmp_path):

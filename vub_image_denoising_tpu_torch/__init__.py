@@ -3,11 +3,15 @@
 The PyTorch and CUDA counterpart of ``vub_image_denoising_tpu``, module for
 module under the same names.  It imports torch and never JAX.
 
-- ``nn``      — layers and RDUNet blocks (state_dict keys = the reference ``.pth``)
-- ``models``  — ``RDUNet``
-- ``ops``     — hand-written CUDA kernels (``csrc/``) with their plain versions
-- ``utils``   — ``.pth`` checkpoint IO and the JAX param-tree converter
-- ``eval``    — the denoising CLI and the HTTP server
+- ``nn``        — layers and RDUNet blocks (state_dict keys = the reference ``.pth``)
+- ``models``    — ``RDUNet``, the time-conditioned ``RDUNetT``, and the
+  functional forward with a choice of block engine (``fused_apply``)
+- ``ops``       — hand-written CUDA kernels (``csrc/``) with their plain versions
+- ``diffusion`` — the interpolation-diffusion sampler and its losses
+- ``train``     — the supervised and the diffusion train steps and trainers
+  (``SupervisedTrainer``, ``DiffusionTrainer``)
+- ``utils``     — ``.pth`` checkpoint IO and the JAX param-tree converter
+- ``eval``      — the denoising CLI and the HTTP server (``rdunet`` and ``diffusion``)
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,19 @@
 """Denoise images from the command line with a reference-layout ``.pth``.
 
 Counterpart of ``vub_image_denoising_tpu/eval/denoise_cli.py``.  Images of any
-size are reflect-padded on the host to the U-Net's stride (8) and run as one
-forward on the card, where every DenoisingBlock is the fused CUDA kernel.
+size are reflect-padded on the host to the U-Net's stride (8) and run on the
+card, where every DenoisingBlock is the fused CUDA kernel:
+
+- ``--arch rdunet``: one RDUNet forward;
+- ``--arch diffusion``: the T-step interpolation-diffusion sampler
+  (``--timesteps``, default 20) on an RDUNetT, one forward of the 2N stack
+  per step.
 
 Usage:
   python -m vub_image_denoising_tpu_torch.eval.denoise_cli \
       --checkpoint model.pth --input photo.png --output clean.png [--bf16]
+  python -m vub_image_denoising_tpu_torch.eval.denoise_cli --arch diffusion \
+      --timesteps 20 --checkpoint diffusion.pth --input photo.png
 """
 
 import argparse
@@ -15,7 +22,8 @@ import os
 import numpy as np
 import torch
 
-from ..models.rdunet import RDUNet
+from ..diffusion.interpolation import InterpolationDiffusion
+from ..models.rdunet import RDUNet, RDUNetT
 from ..utils import checkpoint as ckpt_io
 from ..utils.device import resolve_device
 
@@ -23,38 +31,52 @@ IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg")
 
 
 def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
-                channels: int = 3, bf16: bool = False, trusted: bool = False, device=None):
+                timesteps: int = 20, channels: int = 3, bf16: bool = False,
+                trusted: bool = False, device=None):
     """Shared model/checkpoint construction for every inference entry point:
     returns ``(forward, model)``, where ``forward(batch)`` maps a normalized
     (N, H, W, C) [-1, 1] float32 tensor on the model's device to its denoised
     counterpart, float32, same layout.
 
-    f32 runs with TF32 off (``enable_strict_precision``); ``bf16=True`` runs
-    the activations in bf16 with the params in f32."""
+    ``arch="rdunet"`` is one RDUNet forward; ``arch="diffusion"`` loads an
+    RDUNetT from ``unet.``-prefixed keys and runs ``timesteps`` steps of
+    ``InterpolationDiffusion.improved_sampling`` through the module.  f32
+    runs with TF32 off (``enable_strict_precision``); ``bf16=True`` runs the
+    activations in bf16 with the params in f32."""
     device = resolve_device(device)
-    if arch == "diffusion":
-        raise NotImplementedError(
-            "arch 'diffusion' (RDUNetT + the T-step improved sampler) is not ported yet; "
-            "it is the next slice of the port (ROADMAP.md)")
-    if arch != "rdunet":
+    if arch == "rdunet":
+        model = RDUNet(channels=channels, base_filters=base_filters)
+        prefix = ""
+    elif arch == "diffusion":
+        if channels != 3:
+            raise ValueError(
+                "--arch diffusion requires RGB input (the reference RDUNet_T is "
+                "fixed at 3+t channels, Unet_model.py:92-136); drop --grayscale")
+        model = RDUNetT(base_filters=base_filters)
+        prefix = "unet."
+    else:
         raise ValueError(f"unknown arch '{arch}' (expected rdunet|diffusion)")
     if not bf16:
         from .. import enable_strict_precision
 
         enable_strict_precision()
     dtype = torch.bfloat16 if bf16 else torch.float32
-    model = RDUNet(channels=channels, base_filters=base_filters)
-    ckpt_io.load_pth(checkpoint, model, allow_pickle=trusted)
+    ckpt_io.load_pth(checkpoint, model, prefix=prefix, allow_pickle=trusted)
     model = model.to(device).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
+    if arch == "diffusion":
+        diffusion = InterpolationDiffusion(timesteps=timesteps)
+        apply = lambda x: diffusion.improved_sampling(model, x)  # noqa: E731
+    else:
+        apply = model
 
     def forward(batch):
         with torch.inference_mode():
             x = batch.permute(0, 3, 1, 2).to(dtype)
             if device.type == "cuda":
                 x = x.contiguous(memory_format=torch.channels_last)
-            return model(x).float().permute(0, 2, 3, 1)
+            return apply(x).float().permute(0, 2, 3, 1)
 
     return forward, model
 
@@ -67,12 +89,13 @@ def _pad8(images: np.ndarray) -> np.ndarray:
 
 
 def build_denoiser(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
-                   channels: int = 3, bf16: bool = False, trusted: bool = False,
-                   batched: bool = False, device=None):
+                   timesteps: int = 20, channels: int = 3, bf16: bool = False,
+                   trusted: bool = False, batched: bool = False, device=None):
     """(fn: (H, W, C) float32 [-1, 1] numpy -> (H, W, C) float32 numpy) from a
     ``.pth``.  With ``batched=True`` the fn maps a stacked same-size batch
-    (N, H, W, C) -> (N, H, W, C) in one forward (the server's dynamic batching)."""
-    forward, model = build_apply(checkpoint, arch, base_filters, channels=channels,
+    (N, H, W, C) -> (N, H, W, C) in one forward, or one sampler run (the
+    server's dynamic batching)."""
+    forward, model = build_apply(checkpoint, arch, base_filters, timesteps, channels=channels,
                                  bf16=bf16, trusted=trusted, device=device)
     device = next(model.parameters()).device
 
@@ -110,6 +133,8 @@ def main(argv=None):
     p.add_argument("--output", default=None,
                    help="output file or folder (default: <input>_denoised)")
     p.add_argument("--base-filters", type=int, default=32)
+    p.add_argument("--timesteps", type=int, default=20,
+                   help="sampler steps of --arch diffusion")
     p.add_argument("--grayscale", action="store_true")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -119,7 +144,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     channels = 1 if args.grayscale else 3
-    denoise_fn = build_denoiser(args.checkpoint, args.arch, args.base_filters,
+    denoise_fn = build_denoiser(args.checkpoint, args.arch, args.base_filters, args.timesteps,
                                 channels=channels, bf16=args.bf16,
                                 trusted=args.trusted_checkpoint, device=args.device)
 

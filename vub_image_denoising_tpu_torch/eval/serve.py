@@ -2,7 +2,8 @@
 
 Counterpart of ``vub_image_denoising_tpu/eval/serve.py``: a checkpoint is
 loaded once, then every request (or coalesced batch of requests) is one
-forward on the card.  Stdlib-only (``http.server``).
+forward on the card, or with ``--arch diffusion`` one run of the T-step
+sampler (``--timesteps``).  Stdlib-only (``http.server``).
 
 Endpoints:
   GET  /healthz    -> JSON: device, arch, request shapes seen, latency
@@ -24,6 +25,8 @@ which keeps device memory bounded at one batch.  Dynamic batching (default
 Usage:
   python -m vub_image_denoising_tpu_torch.eval.serve --checkpoint ck.pth \
       --base-filters 32 --bf16 --port 8900
+  python -m vub_image_denoising_tpu_torch.eval.serve --checkpoint diffusion.pth \
+      --arch diffusion --timesteps 20
   curl -s -X POST --data-binary @noisy.png localhost:8900/denoise > clean.png
 """
 
@@ -478,6 +481,8 @@ def main(argv=None):
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--arch", default="rdunet", choices=["rdunet", "diffusion"])
     p.add_argument("--base-filters", type=int, default=32)
+    p.add_argument("--timesteps", type=int, default=20,
+                   help="sampler steps of --arch diffusion")
     p.add_argument("--grayscale", action="store_true")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -499,7 +504,7 @@ def main(argv=None):
     channels = 1 if args.grayscale else 3
     batching = args.max_batch > 1
     denoise_fn = build_denoiser(
-        args.checkpoint, args.arch, args.base_filters, channels=channels,
+        args.checkpoint, args.arch, args.base_filters, args.timesteps, channels=channels,
         bf16=args.bf16, trusted=args.trusted_checkpoint, batched=batching,
         device=device,
     )

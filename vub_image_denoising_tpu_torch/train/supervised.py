@@ -55,26 +55,40 @@ def make_supervised_train_step(
     loss_fn = loss_fn or l1_loss
 
     def step(state: TrainState, noisy, clean):
-        n = noisy.shape[0]
-        acc = effective_accumulation(n, accumulation_steps)
-        mb = n // acc
-        params = list(state.params.values())
-        loss_sum, grad_sum = 0.0, None
-        for i in range(acc):
-            sl = slice(i * mb, (i + 1) * mb)
+        def micro_loss(sl):
             pred = apply_fn(state.params, noisy[sl].to(compute_dtype))
-            loss = loss_fn(pred.float(), clean[sl].float())
-            grads = torch.autograd.grad(loss, params)
-            if grad_sum is None:
-                grad_sum = list(grads)
-            else:
-                for s, g in zip(grad_sum, grads):
-                    s.add_(g)
-            loss_sum = loss_sum + loss.detach()
-        state.apply_gradients(grad_sum)
-        return state, loss_sum / acc
+            return loss_fn(pred.float(), clean[sl].float())
+
+        return accumulate_and_apply(state, noisy.shape[0], accumulation_steps, micro_loss)
 
     return step
+
+
+def accumulate_and_apply(state: TrainState, n: int, accumulation_steps: int, micro_loss):
+    """Split a batch of ``n`` into ``effective_accumulation`` micro-batches,
+    SUM the gradients of ``micro_loss(slice)`` over them, and take one
+    clipped optimizer step.  Returns ``(state, mean micro-batch loss)``."""
+    acc = effective_accumulation(n, accumulation_steps)
+    mb = n // acc
+    params = list(state.params.values())
+    loss_sum, grad_sum = 0.0, None
+    for i in range(acc):
+        loss = micro_loss(slice(i * mb, (i + 1) * mb))
+        grads = torch.autograd.grad(loss, params)
+        if grad_sum is None:
+            grad_sum = list(grads)
+        else:
+            for s, g in zip(grad_sum, grads):
+                s.add_(g)
+        loss_sum = loss_sum + loss.detach()
+    state.apply_gradients(grad_sum)
+    return state, loss_sum / acc
+
+
+def put_batch(batch, device):
+    """A batch on ``device``, channels_last on the card."""
+    x = torch.as_tensor(batch).to(device, non_blocking=True)
+    return x.contiguous(memory_format=torch.channels_last) if device.type == "cuda" else x
 
 
 @dataclasses.dataclass
@@ -126,8 +140,7 @@ class SupervisedTrainer:
 
     def put(self, batch):
         """A batch on the trainer's device, channels_last on the card."""
-        x = torch.as_tensor(batch).to(self.device, non_blocking=True)
-        return x.contiguous(memory_format=torch.channels_last) if self.device.type == "cuda" else x
+        return put_batch(batch, self.device)
 
     def train_step(self, state, noisy, clean):
         return self._step(state, self.put(noisy), self.put(clean))

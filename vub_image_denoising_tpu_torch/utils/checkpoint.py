@@ -96,11 +96,13 @@ def _atomic_torch_save(obj, path: str):
 
 
 def save_pth(path: str, state_dict: Mapping[str, torch.Tensor], *, epoch: Optional[int] = None,
-             bare: bool = False):
+             prefix: str = "", bare: bool = False):
     """Write a reference-layout ``.pth``: ``{'model_state_dict': ..., 'epoch'?}``,
-    or the bare state_dict with ``bare=True``."""
+    or the bare state_dict with ``bare=True``.  ``prefix`` goes in front of
+    every key (``"unet."`` in the reference diffusion checkpoints)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    sd = {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in state_dict.items()}
+    sd = {prefix + k: v.detach().to("cpu", torch.float32).contiguous()
+          for k, v in state_dict.items()}
     if bare:
         _atomic_torch_save(sd, path)
         return
@@ -110,13 +112,20 @@ def save_pth(path: str, state_dict: Mapping[str, torch.Tensor], *, epoch: Option
     _atomic_torch_save(payload, path)
 
 
-def load_pth(path: str, model: torch.nn.Module, *, allow_pickle: bool = False):
+def load_pth(path: str, model: torch.nn.Module, *, prefix: str = "",
+             allow_pickle: bool = False):
     """Load a reference-layout ``.pth`` (dict-wrapped or bare) into ``model``
-    with ``strict=True``.  Returns ``(model, payload_dict_or_None)``."""
+    with ``strict=True``.  ``prefix`` is stripped from every key, and a key
+    without it is an error.  Returns ``(model, payload_dict_or_None)``."""
     payload = load_torch_payload(path, allow_pickle=allow_pickle)
     if isinstance(payload, dict) and "model_state_dict" in payload:
         sd = payload["model_state_dict"]
     else:
         sd, payload = payload, None
+    if prefix:
+        missing = [k for k in sd if not k.startswith(prefix)]
+        if missing:
+            raise KeyError(f"{path!r}: keys without the prefix {prefix!r}: {missing[:5]}")
+        sd = {k[len(prefix):]: v for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)
     return model, payload
