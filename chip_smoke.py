@@ -61,6 +61,22 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    finite losses, one f32 SGD step against ``engine="xla"`` with the same
    timesteps, and one ``validate`` (a full sampler pass).  Times a step on
    each engine.
+11. Trains from a folder through the command line: writes a synthetic
+   DIV2K-style folder (8 RGB PNGs of 768x512: 48 patches of 256^2, 144
+   samples) and a SIDD tree of 4 pairs, then runs
+   ``train.diffusion.main`` on RDUNetT-32, batch 8, engine "pallas", f32,
+   default augmentation, 2 epochs: the epoch and final checkpoints load
+   strict, kernel 1 launches 56 x steps + 280 x epochs times, all on the
+   tensor cores, losses are finite and the native gather ran.  A second run
+   resumes from the epoch-1 checkpoint through ``train(args, loaders)``, the
+   loaders' ``.epoch`` set to 1 (the CLI, like JAX's, leaves it at 0); its
+   final params are held to the
+   straight run's (STEP_RTOL / STEP_ATOL; both runs take cuDNN's
+   deterministic algorithms, whose default weight gradients are not
+   deterministic).  One epoch each with ``--device-data`` and with
+   ``--dataset_choice SIDD``.  Times the host loader and the device bank
+   per batch, a "pallas" f32 epoch fed by each (against phase 10's step)
+   and the card's idle share over such an epoch.
 
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
@@ -856,7 +872,7 @@ def diffusion_train_main_path(torch, device):
             before = fused_denoising_block.tc_launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            vloss, denoised = trainer.validate(state, *batches[0])
+            vloss, denoised = trainer.validate(state, [batches[0]])
             torch.cuda.synchronize()
             validation = {"loss": vloss, "ms": (time.perf_counter() - t0) * 1e3,
                           "launches": fused_denoising_block.tc_launches - before}
@@ -905,6 +921,241 @@ def compare_diffusion_with_xla(torch, batch):
           f"= {worst:.3f} (must be <= 1)", flush=True)
     if abs(losses["pallas"] - losses["xla"]) > LOSS_RTOL * abs(losses["xla"]) or worst > 1:
         fail("the pallas diffusion step disagrees with the xla step")
+
+
+# Phase 11: a synthetic DIV2K-style folder (768x512 RGB PNGs, 6 patches of
+# 256^2 each: 48 patches, 144 samples with sigma in {15, 25, 50}) and a small
+# SIDD tree (4 scenes, one NOISY/GT pair each: 24 pairs), trained through the
+# CLI at full width.  Split 0.2: 115 train samples, 14 steps of 8 per epoch.
+FOLDER_IMAGES, FOLDER_SIZE, SIDD_SCENES = 8, (768, 512), 4
+FOLDER_EPOCHS, FOLDER_STEPS = 2, 14
+
+
+def write_folder(root, seed=11):
+    """The DIV2K-style folder and the SIDD tree under ``root``, in the CLI's
+    layout (``DIV2K_train_HR.nosync``, ``SIDD_dataset.nosync/SIDD_Medium_Srgb``),
+    from a seeded numpy generator: smooth random fields plus noise."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    w, h = FOLDER_SIZE
+
+    def image():
+        coarse = rng.randint(0, 256, (h // 32 + 1, w // 32 + 1, 3)).astype(np.float32)
+        smooth = np.kron(coarse, np.ones((32, 32, 1), np.float32))[:h, :w]
+        return np.clip(smooth + rng.randn(h, w, 3) * 8, 0, 255).astype(np.uint8)
+
+    div2k = os.path.join(root, "DIV2K_train_HR.nosync")
+    os.makedirs(div2k)
+    for i in range(FOLDER_IMAGES):
+        Image.fromarray(image()).save(os.path.join(div2k, f"{i:04d}.png"))
+    sidd = os.path.join(root, "SIDD_dataset.nosync", "SIDD_Medium_Srgb")
+    scenes = [f"{i:04d}_001_S6_00100_00060_3200_L" for i in range(1, SIDD_SCENES + 1)]
+    for name in scenes:
+        d = os.path.join(sidd, "Data", name)
+        os.makedirs(d)
+        gt = image()
+        noisy = np.clip(gt + rng.randn(*gt.shape) * 20, 0, 255).astype(np.uint8)
+        Image.fromarray(gt).save(os.path.join(d, f"{name[:4]}_GT_SRGB_010.png"))
+        Image.fromarray(noisy).save(os.path.join(d, f"{name[:4]}_NOISY_SRGB_010.png"))
+    with open(os.path.join(sidd, "Scene_Instances.txt"), "w") as f:
+        f.write("\n".join(scenes) + "\n")
+
+
+def cli_run(torch, root, out, *extra, loader_epoch=None):
+    """One run of the port's CLI on the folder at full width: RDUNetT-32,
+    batch 8, 256^2 patches, engine "pallas", f32, dataset_percentage 1.0,
+    default --augment (on).  Through ``train.diffusion.main``, or with
+    ``loader_epoch`` through ``train(args, train_loader, val_loader)`` with
+    the loaders' ``.epoch`` set to it (a resumed run that shuffles and draws
+    noise as the straight run did).  Returns (state, history, kernel-1
+    launches of the run, its tensor-core launches, native gathers, wall
+    seconds)."""
+    from vub_image_denoising_tpu_torch import native
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
+    from vub_image_denoising_tpu_torch.train.diffusion import build_arg_parser, load_data_for
+    from vub_image_denoising_tpu_torch.train.diffusion import main as train_main
+    from vub_image_denoising_tpu_torch.train.diffusion import train
+
+    argv = ["--dataset_choice", "DIV2K", "--data_root", root, "--batch_size", str(TRAIN_BATCH),
+            "--dataset_percentage", "1.0", "--base_filters", str(BASE_FILTERS),
+            "--timesteps", str(TIMESTEPS), "--engine", "pallas", "--output_dir", out, *extra]
+    fused_denoising_block.launches = fused_denoising_block.tc_launches = 0
+    native.gather_patches.native_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if loader_epoch is None:
+        state, history = train_main(argv)
+    else:
+        args = build_arg_parser().parse_args(argv)
+        loaders = load_data_for(args, device=torch.device("cuda"))
+        for loader in loaders:
+            loader.epoch = loader_epoch
+        state, history = train(args, *loaders)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return (state, history, fused_denoising_block.launches, fused_denoising_block.tc_launches,
+            native.gather_patches.native_calls, sec)
+
+
+def check_cli_run(name, run, epochs, steps, total_steps, card):
+    """The run took ``epochs`` epochs of ``steps`` steps in all (the state
+    counts ``total_steps``, the resumed ones too); every block of every step
+    (56) and of each validation (14*T) launched kernel 1 on the tensor
+    cores; losses finite."""
+    state, history, launches, tc, gathers, sec = run
+    want = 14 * ACCUMULATION * steps + 14 * TIMESTEPS * epochs
+    losses = [h["loss"] for h in history] + [h["val_loss"] for h in history]
+    print(f"folder train {name}: {len(history)} epochs, {state.step} steps, losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; kernel 1 launches {launches} ({tc} on the "
+          f"tensor cores; want 56 x steps + 280 x epochs = {want}), {gathers} native gathers, "
+          f"{sec:.2f} s ({card})", flush=True)
+    if (len(history) != epochs or state.step != total_steps or launches != want
+            or tc != launches or gathers == 0 or not all(math.isfinite(x) for x in losses)):
+        fail(f"folder train {name}: {len(history)} epochs (want {epochs}), {state.step} steps "
+             f"(want {total_steps}), {launches} launches ({tc} tc; want {want}), {gathers} "
+             f"native gathers, losses {losses}")
+    return {"epochs": len(history), "steps": steps, "all": launches, "tc": tc,
+            "native_gathers": gathers, "sec": sec,
+            "epoch_sec": [h["sec"] for h in history], "losses": losses}
+
+
+def load_final(torch, path):
+    """A checkpoint of the run, loaded strict into RDUNetT-32."""
+    from vub_image_denoising_tpu_torch.models import RDUNetT
+    from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
+
+    if not os.path.isfile(path):
+        fail(f"missing checkpoint {path}")
+    model, _ = load_pth(path, RDUNetT(BASE_FILTERS), prefix="unet.")
+    return {k: v.detach() for k, v in model.state_dict().items()}
+
+
+def folder_train_main_path(torch, device, card, synthetic_step_ms):
+    """Phase 11: train RDUNetT-32 from an image folder through the CLI, check
+    the checkpoints, the launches and a resumed run; one epoch each from the
+    device bank and from SIDD; time the loaders, the epochs and the card's
+    idle share.  TensorBoard is left out (tensorboardX blocked): the CLI
+    then trains without a writer, as where it is not installed."""
+    sys.modules["tensorboardX"] = None
+    epoch_file = "diffusion_RDUNet_model_checkpointed_epoch_{}.pth"
+    out = {}
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_folder(tmp)
+        print(f"folder train: wrote {FOLDER_IMAGES} PNGs of {FOLDER_SIZE[0]}x{FOLDER_SIZE[1]} and "
+              f"{SIDD_SCENES} SIDD pairs in {time.perf_counter() - t0:.2f} s", flush=True)
+        straight_dir, resumed_dir = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
+        # cuDNN's default weight-gradient algorithms are not deterministic, and
+        # AdamW moves an element whose gradient is near zero by about lr either
+        # way: the straight and the resumed run take cuDNN's deterministic ones
+        torch.backends.cudnn.deterministic = True
+        run = cli_run(torch, tmp, straight_dir, "--num_epochs", str(FOLDER_EPOCHS))
+        steps = FOLDER_EPOCHS * FOLDER_STEPS
+        out["straight"] = check_cli_run("straight", run, FOLDER_EPOCHS, steps, steps, card)
+        for e in range(1, FOLDER_EPOCHS + 1):
+            load_final(torch, os.path.join(straight_dir, epoch_file.format(e)))
+        final = os.path.join(straight_dir, "diffusion_RDUNet_model_checkpointed_final.pth")
+        straight = load_final(torch, final)
+
+        run = cli_run(torch, tmp, resumed_dir, "--num_epochs", str(FOLDER_EPOCHS),
+                      "--checkpoint_path", os.path.join(straight_dir, epoch_file.format(1)),
+                      loader_epoch=1)
+        out["resumed"] = check_cli_run("resumed", run, FOLDER_EPOCHS - 1, FOLDER_STEPS, steps,
+                                       card)
+        torch.backends.cudnn.deterministic = False
+        resumed = load_final(torch, final.replace(straight_dir, resumed_dir))
+        worst = max(((v - resumed[k]).abs() / (STEP_ATOL + STEP_RTOL * v.abs())).max().item()
+                    for k, v in straight.items())
+        diff = max((v - resumed[k]).abs().max().item() for k, v in straight.items())
+        out["resume_worst_over_tol"], out["resume_max_abs_diff"] = worst, diff
+        print(f"folder train resumed vs straight final params: max |diff| {diff:.3e}, worst "
+              f"|diff| / (atol {STEP_ATOL} + rtol {STEP_RTOL}*|p|) = {worst:.4f} (must be <= 1)",
+              flush=True)
+        if worst > 1:
+            fail("the resumed run's params disagree with the straight run's")
+
+        run = cli_run(torch, tmp, os.path.join(tmp, "bank"), "--num_epochs", "1", "--device-data")
+        out["device_data"] = check_cli_run("device-data", run, 1, FOLDER_STEPS, FOLDER_STEPS,
+                                           card)
+        run = cli_run(torch, tmp, os.path.join(tmp, "sidd"), "--num_epochs", "1",
+                      "--dataset_choice", "SIDD")
+        sidd_steps = int(0.8 * SIDD_SCENES * 6) // TRAIN_BATCH  # 6 patches a pair
+        out["sidd"] = check_cli_run("SIDD", run, 1, sidd_steps, sidd_steps, card)
+        out["timing"] = time_folder_loaders(torch, device, tmp, card, synthetic_step_ms)
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"folder train phase: {out['phase_sec']:.1f} s", flush=True)
+    return out
+
+
+def trace_busy(torch, fn):
+    """fn() once under torch.profiler, CUDA activity only: wall ms, the
+    card's busy ms (the union of its kernel, memcpy and memset intervals,
+    user annotations left out, read from the profiler's raw events: its
+    own event tables take minutes to build for an epoch) and the idle
+    share 1 - busy / wall."""
+    from torch._C._autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+    busy_ns, end = 0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_ns += b - max(a, end)
+            end = b
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ns / 1e6,
+            "idle_share": 1 - busy_ns / 1e6 / wall_ms, "device_events": len(spans)}
+
+
+def time_folder_loaders(torch, device, root, card, synthetic_step_ms):
+    """ms per batch of 8 x 256^2 of the host PatchLoader (fetch, pinned H2D
+    copy, on-card noise/augment/normalize) and of the device bank, each over
+    one epoch alone (CUDA events); then "pallas" f32 epochs fed by each, in
+    turns (host, bank, bank, host), beside phase 10's synthetic-batch step;
+    then one traced epoch of each for the card's idle share."""
+    from vub_image_denoising_tpu_torch.data.loader import load_data
+    from vub_image_denoising_tpu_torch.train import DiffusionTrainer
+
+    folder = os.path.join(root, "DIV2K_train_HR.nosync")
+    runs, out = {}, {}
+    for name, bank in (("host", False), ("bank", True)):
+        loader, _ = load_data(folder, batch_size=TRAIN_BATCH, augment=True, use_rgb=True,
+                              num_workers=8, device=device, device_data=bank)
+        trainer = DiffusionTrainer(base_filters=BASE_FILTERS, timesteps=TIMESTEPS,
+                                   accumulation_steps=ACCUMULATION, engine="pallas")
+        runs[name] = (loader, trainer, trainer.init(steps_per_epoch=len(loader)))
+        out[name] = {"batches": len(loader), "synthetic_step_ms": synthetic_step_ms,
+                     "loader_ms_per_batch": cuda_ms(
+                         torch, lambda: sum(1 for _ in loader), 1) / len(loader),
+                     "epoch_ms_runs": []}
+    for name in ("host", "bank", "bank", "host"):
+        loader, trainer, state = runs[name]
+        out[name]["epoch_ms_runs"].append(
+            cuda_ms(torch, lambda: trainer.train_epoch(state, loader, 0), 1, warmup=0))
+    for name, (loader, trainer, state) in runs.items():
+        rec = out[name]
+        rec.update(trace_busy(torch, lambda: trainer.train_epoch(state, loader, 1)))
+        rec["step_ms_runs"] = [ms / rec["batches"] for ms in rec["epoch_ms_runs"]]
+        rec["busy_share_of_untraced_epoch"] = rec["device_busy_ms"] / min(rec["epoch_ms_runs"])
+        print(f"folder loader {name}: {rec['loader_ms_per_batch']:.3f} ms per batch of "
+              f"{TRAIN_BATCH}x256x256 alone; pallas f32 step fed by it "
+              f"{', '.join(f'{ms:.2f}' for ms in rec['step_ms_runs'])} ms (epochs of "
+              f"{rec['batches']}, in turns) against {synthetic_step_ms:.2f} ms on synthetic "
+              f"batches (phase 10); traced epoch: wall {rec['wall_ms']:.1f} ms, card busy "
+              f"{rec['device_busy_ms']:.1f} ms, idle share {rec['idle_share']:.3f}; busy over "
+              f"the faster untraced epoch {rec['busy_share_of_untraced_epoch']:.3f} ({card})",
+              flush=True)
+    return out
 
 
 def step_breakdown(torch, trainer, state, batch, step_ms):
@@ -1101,6 +1352,8 @@ def main():
         sampler = time_sampler(torch, ck)
     diffusion_train_launches, diffusion_step_ms, validation = diffusion_train_main_path(
         torch, device)
+    folder = folder_train_main_path(torch, device, card, diffusion_step_ms["pallas_f32"])
+    folder_launches = {k: folder[k]["tc"] for k in ("straight", "resumed", "device_data", "sidd")}
 
     def per_forward(recs, shapes, dtype):
         return [(r, cnt) for r in recs for s, cnt in shapes
@@ -1172,7 +1425,8 @@ def main():
             "source": CSRC + "fused_block_tc.cu",
             "replaces": "vub_image_denoising_tpu/ops/fused_block.py:193",
             "launches": (serve_launches["tc"] + train_launches["tc"]
-                         + diffusion_serve_launches["tc"] + diffusion_train_launches["tc"]),
+                         + diffusion_serve_launches["tc"] + diffusion_train_launches["tc"]
+                         + sum(folder_launches.values())),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -1182,6 +1436,7 @@ def main():
             "launches_by_path": {"train": train_launches, "serve": serve_launches,
                                  "diffusion_serve": diffusion_serve_launches,
                                  "diffusion_train": diffusion_train_launches,
+                                 "diffusion_fit": folder_launches,
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
             "train_step_ms": step_ms,
@@ -1191,6 +1446,7 @@ def main():
                                            for d in ("float32", "bfloat16")}},
             "diffusion_train_step_ms": diffusion_step_ms,
             "diffusion_validate": validation,
+            "folder_train": folder,
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc")},
             "card": card,
         },

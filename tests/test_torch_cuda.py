@@ -469,3 +469,51 @@ def test_cuda_diffusion_trainer_step(cuda, engine, launches):
         losses[eng] = loss.item()
         assert state.step == 1 and torch.isfinite(loss)
     assert abs(losses[engine] - losses["xla"]) <= 1e-5 * abs(losses["xla"])
+
+
+def _near_tie(src, tol=1e-4):
+    return (src.double() - src.double().floor() - 0.5).abs() < tol
+
+
+def test_cuda_data_transforms_match_the_cpu(cuda):
+    """The on-card noise, augmentation and normalization against the same
+    functions on the CPU with the same draws (``noise=``, ``flips=``,
+    ``angles=``): byte-equal, but for a rotated pixel whose f32 source
+    coordinate lies within 1e-4 of a .5 rounding tie (the card's cos/sin
+    may differ from the CPU's in the last bit); such pixels are counted and
+    printed."""
+    import math
+
+    from vub_image_denoising_tpu_torch.data import device as dev
+
+    gen = torch.Generator().manual_seed(0)
+    n, h, w = 6, 64, 48
+    clean = torch.randint(0, 256, (n, h, w, 3), generator=gen, dtype=torch.uint8)
+    noisy = torch.randint(0, 256, (n, h, w, 3), generator=gen, dtype=torch.uint8)
+    noise = torch.randn((n, h, w, 3), generator=gen)
+    sigma = torch.tensor([0.0, 15.0, 25.0, 50.0, 75.0, 100.0])
+    flips = torch.rand(n, generator=gen) < 0.5
+    angles = torch.empty(n).uniform_(-10.0, 10.0, generator=gen)
+    # the source coordinates as the CPU computes them (dev._rotation_map before rounding)
+    theta = (-angles * math.pi / 180.0).reshape(-1, 1, 1)
+    yy = torch.arange(h, dtype=torch.float32).reshape(1, h, 1) - (h - 1) / 2.0
+    xx = torch.arange(w, dtype=torch.float32).reshape(1, 1, w) - (w - 1) / 2.0
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    tie = (_near_tie(cos * yy - sin * xx + (h - 1) / 2.0)
+           | _near_tie(sin * yy + cos * xx + (w - 1) / 2.0))
+    for augment in (False, True):
+        draws = dict(flips=flips, angles=angles) if augment else {}
+        for name, fn, args, kw in (
+                ("degrade_and_normalize", dev.degrade_and_normalize, (clean, sigma),
+                 dict(noise=noise, **draws)),
+                ("normalize_pair", dev.normalize_pair, (noisy, clean), draws)):
+            want = fn(None, *args, augment=augment, **kw)
+            got = fn(None, *(a.to(cuda) for a in args), augment=augment,
+                     **{k: v.to(cuda) for k, v in kw.items()})
+            for g, wv in zip(got, want):
+                assert g.is_cuda and g.shape == wv.shape == (n, 3, h, w)
+                off = (g.cpu() != wv).any(1)  # (N, H, W)
+                print(f"{name} augment={augment}: {int(off.sum())} pixels differ, "
+                      f"{int((off & tie).sum())} at ties, {int(tie.sum())} tie pixels")
+                allowed = tie if augment else torch.zeros_like(tie)
+                assert not (off & ~allowed).any(), f"{name}: pixels off outside a rounding tie"

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_fused_apply import nchw, nhwc, numpy_params_like, run_jax
+from test_torch_rdunet import one_thread  # noqa: F401 — an autouse fixture
 from vub_image_denoising_tpu.diffusion import InterpolationDiffusion as JDiffusion
 from vub_image_denoising_tpu.diffusion import losses as jl
 from vub_image_denoising_tpu.models.rdunet import RDUNetT as JRDUNetT

@@ -19,6 +19,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from test_torch_rdunet import one_thread  # noqa: F401 — an autouse fixture
 from vub_image_denoising_tpu.diffusion import InterpolationDiffusion as JDiffusion
 from vub_image_denoising_tpu.train import TrainState as JTrainState
 from vub_image_denoising_tpu.train import schedules as js
@@ -145,13 +146,14 @@ def test_diffusion_trainer_engines_take_the_same_step():
         for k, v in results[engine][1].items():
             np.testing.assert_allclose(v.numpy(), results["flax"][1][k].numpy(), rtol=1e-4,
                                        atol=1e-6, err_msg=k)
-    vloss, denoised = trainer.validate(state, noisy, clean)
+    vloss, denoised = trainer.validate(state, [(noisy, clean)])
     assert np.isfinite(vloss) and denoised.shape == noisy.shape
     direct = DiffusionTrainer(base_filters=4, timesteps=T, sampling="direct", device="cpu")
     state = direct.init(steps_per_epoch=1, seed=7)
     with torch.no_grad():
         want = direct.unet(noisy, torch.ones(4))
-    np.testing.assert_array_equal(direct.validate(state, noisy, clean)[1].numpy(), want.numpy())
+    np.testing.assert_array_equal(direct.validate(state, [(noisy, clean)])[1].numpy(),
+                                  want.numpy())
 
 
 def test_diffusion_trainer_defaults_to_the_card():

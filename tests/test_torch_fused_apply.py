@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_rdunet import numpy_params
+from test_torch_rdunet import numpy_params, one_thread  # noqa: F401 — autouse
 from vub_image_denoising_tpu.models import fused_apply as jfa
 from vub_image_denoising_tpu.models.rdunet import RDUNet as JRDUNet
 from vub_image_denoising_tpu.models.rdunet import RDUNetT as JRDUNetT

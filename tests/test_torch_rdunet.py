@@ -37,6 +37,17 @@ def numpy_params(model, x, seed):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module that uses this fixture: the suite
+    runs a worker per core, and torch's thread pool on top of those
+    multiplies the time of small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def carried():
     base = 8

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_rdunet import numpy_params
+from test_torch_rdunet import numpy_params, one_thread  # noqa: F401 — autouse
 from vub_image_denoising_tpu.nn.blocks import DenoisingBlock as JDenoisingBlock
 from vub_image_denoising_tpu.train import TrainState as JTrainState
 from vub_image_denoising_tpu.train import make_supervised_train_step as jax_train_step

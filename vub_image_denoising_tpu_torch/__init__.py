@@ -8,9 +8,13 @@ module under the same names.  It imports torch and never JAX.
   functional forward with a choice of block engine (``fused_apply``)
 - ``ops``       — hand-written CUDA kernels (``csrc/``) with their plain versions
 - ``diffusion`` — the interpolation-diffusion sampler and its losses
-- ``train``     — the supervised and the diffusion train steps and trainers
-  (``SupervisedTrainer``, ``DiffusionTrainer``)
-- ``utils``     — ``.pth`` checkpoint IO and the JAX param-tree converter
+- ``data``      — patch datasets, the host and device-resident loaders, and
+  noise / augmentation / normalization on the device
+- ``native``    — the C++ batched patch gather (``patchio.cpp``, ctypes)
+- ``train``     — the supervised and the diffusion trainers (``fit``,
+  checkpoints, resume), presets, and the diffusion training CLI
+- ``utils``     — ``.pth`` checkpoint IO and the JAX param-tree converter,
+  preemption-safe stops, TensorBoard image grids
 - ``eval``      — the denoising CLI and the HTTP server (``rdunet`` and ``diffusion``)
 """
 

@@ -1,6 +1,6 @@
-"""Interpolation-diffusion trainer.  Counterpart of
-``vub_image_denoising_tpu/train/diffusion.py`` (reference
-diffusion_denoising/diffusion_RDUnet.py:76-315).
+"""Interpolation-diffusion trainer and its command line, the framework's
+primary entry point.  Counterpart of ``vub_image_denoising_tpu/train/diffusion.py``
+(reference diffusion_denoising/diffusion_RDUnet.py:76-315).
 
 One train step, per micro-batch:
 
@@ -12,32 +12,52 @@ One train step, per micro-batch:
 
 The micro-batch gradients are SUMMED (real accumulation, as in the JAX
 package; the reference zero-grads every batch), clipped to global norm 0.1,
-and one AdamW(1e-4, wd 1e-4) + StepLR step is taken.  Validation runs the
-full sampler on one batch.
+and one optimizer step is taken (default AdamW(1e-4, wd 1e-4) + StepLR(3,
+0.5) per epoch).  ``train_epoch`` draws each batch's timesteps from
+``fold_generator(device, seed, epoch, batch)`` (JAX: ``fold_in(fold_in(key,
+epoch), batch)``), so a resumed epoch draws what a straight run draws.
+Validation runs the full sampler on one batch of the val loader.  Checkpoints
+are written per epoch as ``{output_dir}/diffusion_RDUNet_model_checkpointed_epoch_{n}.pth``
+(:170-178) with ``unet.``-prefixed model keys and the optimizer and scheduler
+state, plus a final bare state_dict (:284-286).
 
 Batches are (N, 3, H, W) tensors in [-1, 1]; the trainer moves them to its
-device (the card unless ``device="cpu"``).  ``fit``, the per-epoch
-checkpoints, resume, the TensorBoard image grids and the command line
-(``build_arg_parser``/``main``) are not ported yet: they wait for the data
-loaders.
+device (the card unless ``device="cpu"`` / ``--device cpu``).  Where the JAX
+functions take a ``key`` or a ``sharding``, these take the trainer's seed
+and a ``device``; ``--param-sharding`` accepts only ``replicated`` (one card).
 """
 
+import argparse
 import dataclasses
 import math
+import os
+import time
 from typing import Any
 
 import torch
 
+from ..data.device import fold_generator
 from ..diffusion.interpolation import InterpolationDiffusion
 from ..diffusion.losses import combined_loss
 from ..models.fused_apply import rdunet_t_apply_fused
 from ..models.rdunet import RDUNetT
+from ..utils import checkpoint as ckpt_io
 from ..utils.device import resolve_device
+from ..utils.preempt import GracefulShutdown
+from ..utils.tb import add_image_grid
 from .schedules import make_optimizer
 from .state import TrainState
-from .supervised import ENGINES, accumulate_and_apply, put_batch
+from .supervised import ENGINES, accumulate_and_apply, nhwc_unit, put_batch
 
 SAMPLING = ("improved", "direct")
+
+ASCII_BANNER = r"""
+    ██    ██ ██    ██ ██████       █████  ██     ██       █████  ██████
+    ██    ██ ██    ██ ██   ██     ██   ██ ██     ██      ██   ██ ██   ██
+    ██    ██ ██    ██ ██████      ███████ ██     ██      ███████ ██████
+     ██  ██  ██    ██ ██   ██     ██   ██ ██     ██      ██   ██ ██   ██
+      ████    ██████  ██████      ██   ██ ██     ███████ ██   ██ ██████
+"""
 
 
 def sample_timesteps(generator, n: int, timesteps: int, distribution: str = "uniform"):
@@ -80,18 +100,22 @@ def make_diffusion_train_step(unet_apply, diffusion: InterpolationDiffusion,
 
 @dataclasses.dataclass
 class DiffusionTrainer:
-    """The diffusion training loop on an ``RDUNetT(base_filters)``: AdamW and
-    StepLR(3, 0.5) per epoch, with the JAX trainer's defaults.
+    """The diffusion training loop on an ``RDUNetT(base_filters)``, with the
+    JAX trainer's defaults (``train(args)``, diffusion_RDUnet.py:230-288).
 
     ``engine``: ``"flax"`` runs the model's modules (every DenoisingBlock on
     the kernel, trained through ``fused_block_trainable``); ``"xla"`` the
     eager engine of ``models.fused_apply``; ``"pallas"`` the same engine with
-    the block kernel and the recompute backward.  ``sampling`` is the
-    validation sampler: ``"improved"`` (T steps) or ``"direct"`` (one call at
-    t = 1).  ``state.params`` are the model's own parameters."""
+    the block kernel and the recompute backward.  ``remat`` recomputes the
+    eager engines' blocks in the backward (module-level remat is not ported).
+    ``sampling`` is the validation sampler: ``"improved"`` (T steps) or
+    ``"direct"`` (one call at t = 1).  ``state.params`` are the model's own
+    parameters."""
 
     base_filters: int = 32
     timesteps: int = 20
+    optimizer_choice: str = "adamw"
+    scheduler_choice: str = "step"
     lr: float = 1e-4
     weight_decay: float = 1e-4
     distribution_choice: str = "uniform"
@@ -100,36 +124,45 @@ class DiffusionTrainer:
     sampling: str = "improved"
     accumulation_steps: int = 4
     clip_norm: float = 0.1
+    output_dir: str = "checkpoints"
     compute_dtype: Any = torch.float32
+    writer: Any = None
     engine: str = "flax"
+    remat: bool = False
     device: Any = None
 
     def init(self, steps_per_epoch: int, seed: int = 0) -> TrainState:
         """Builds the model from ``seed`` on the trainer's device, the
-        optimizer, the step and the generator of the timesteps (also seeded
-        by ``seed``)."""
+        optimizer, the step, and the generator ``train_step`` draws timesteps
+        from by default (also seeded by ``seed``; ``train_epoch`` folds the
+        seed with the epoch and batch instead)."""
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r} (want one of {ENGINES})")
         if self.sampling not in SAMPLING:
             raise ValueError(f"unknown sampling {self.sampling!r} (want one of {SAMPLING})")
+        if self.remat and self.engine == "flax":
+            raise ValueError("remat needs engine 'xla' or 'pallas' (module-level remat "
+                             "is not ported)")
         self.device = resolve_device(self.device)
+        self.seed = seed
+        self.steps_per_epoch = max(1, steps_per_epoch)
         self.unet = RDUNetT(self.base_filters, generator=torch.Generator().manual_seed(seed))
         self.unet.to(self.device)
         if self.device.type == "cuda":
             self.unet.to(memory_format=torch.channels_last)
         self.diffusion = InterpolationDiffusion(timesteps=self.timesteps)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.tx = make_optimizer("adamw", lr=self.lr, weight_decay=self.weight_decay,
-                                 scheduler_choice="step",
-                                 steps_per_epoch=max(1, steps_per_epoch),
-                                 clip_norm=self.clip_norm)
+        self.tx = make_optimizer(self.optimizer_choice, lr=self.lr,
+                                 weight_decay=self.weight_decay,
+                                 scheduler_choice=self.scheduler_choice,
+                                 steps_per_epoch=self.steps_per_epoch, clip_norm=self.clip_norm)
         state = TrainState.create(dict(self.unet.named_parameters()), self.tx)
         if self.engine == "flax":
             self.unet_apply = lambda p, x, t: self.unet(x, t)  # noqa: E731 — p are its parameters
         else:
-            eng = self.engine
+            eng, rm = self.engine, self.remat
             self.unet_apply = lambda p, x, t: rdunet_t_apply_fused(  # noqa: E731
-                p, x, t, engine=eng, trainable=eng == "pallas")
+                p, x, t, engine=eng, trainable=eng == "pallas", remat=rm)
         self._step = make_diffusion_train_step(
             self.unet_apply, self.diffusion, self.accumulation_steps,
             distribution=self.distribution_choice, loss_weights=tuple(self.loss_weights),
@@ -139,23 +172,232 @@ class DiffusionTrainer:
     def put(self, batch):
         return put_batch(batch, self.device)
 
-    def train_step(self, state, noisy, clean):
-        return self._step(state, self.generator, self.put(noisy), self.put(clean))
+    def train_step(self, state, noisy, clean, generator=None):
+        """One step; its timesteps come from ``generator`` (default the
+        trainer's running generator)."""
+        g = self.generator if generator is None else generator
+        return self._step(state, g, self.put(noisy), self.put(clean))
 
     def train_epoch(self, state, train_loader, epoch: int = 0):
-        """One pass over ``train_loader``'s (noisy, clean) batches; returns
-        ``(state, mean loss)``."""
-        losses = [self.train_step(state, noisy, clean)[1] for noisy, clean in train_loader]
+        """One pass over ``train_loader``'s (noisy, clean) batches, batch b's
+        timesteps drawn from ``fold_generator(device, seed, epoch, b)``;
+        returns ``(state, mean loss)``."""
+        losses = []
+        for batch_idx, (noisy, clean) in enumerate(train_loader):
+            g = fold_generator(self.device, self.seed, epoch, batch_idx)
+            state, loss = self.train_step(state, noisy, clean, generator=g)
+            losses.append(loss)
+            if self.writer is not None:
+                self.writer.add_scalar("Loss/train", float(loss),
+                                       epoch * len(train_loader) + batch_idx)
         mean_loss = float(torch.stack(losses).mean()) if losses else math.nan
         return state, mean_loss
 
-    def validate(self, state, noisy, clean):
-        """The validation sampler on one (noisy, clean) batch: returns
-        ``(combined_loss against clean, denoised)``."""
+    def validate(self, state, val_loader, epoch: int = 0):
+        """The validation sampler on the first (noisy, clean) batch of
+        ``val_loader`` (diffusion_RDUnet.py:137-159): returns
+        ``(combined_loss against clean, denoised)``, or ``(nan, None)`` for
+        an empty loader.  Logs the loss and image grids when a writer is given."""
+        try:
+            noisy, clean = next(iter(val_loader))
+        except StopIteration:
+            return math.nan, None
         sample = (self.diffusion.direct_sampling if self.sampling == "direct"
                   else self.diffusion.improved_sampling)
+        noisy, clean = self.put(noisy), self.put(clean)
         with torch.no_grad():
             denoised = sample(lambda x, t: self.unet_apply(state.params, x, t),
-                              self.put(noisy).to(self.compute_dtype))
-            vloss = float(combined_loss(denoised.float(), self.put(clean).float()))
+                              noisy.to(self.compute_dtype))
+            vloss = float(combined_loss(denoised.float(), clean.float()))
+        if self.writer is not None:
+            self.writer.add_scalar("Loss/validation", vloss, epoch + 1)
+            for tag, imgs in ((f"Epoch_{epoch + 1}/Clean Images", clean),
+                              (f"Epoch_{epoch + 1}/Noisy Images", noisy),
+                              (f"Epoch_{epoch + 1}/Denoised Images", denoised)):
+                add_image_grid(self.writer, tag, nhwc_unit(imgs[:10]), epoch + 1)
         return vloss, denoised
+
+    def save_epoch_checkpoint(self, state, epoch: int, name: str = ""):
+        """The reference layout (diffusion_RDUnet.py:170-178): ``unet.``-prefixed
+        model keys, ``epoch``, and the optimizer and scheduler state; ``name``
+        overrides the reference file name."""
+        path = os.path.join(
+            self.output_dir,
+            name or f"diffusion_RDUNet_model_checkpointed_epoch_{epoch + 1}.pth",
+        )
+        ckpt_io.save_pth(path, self.unet.state_dict(), epoch=epoch + 1, prefix="unet.",
+                         extra=state.checkpoint_payload())
+        return path
+
+    def load_checkpoint(self, state, checkpoint_path):
+        """Resume (diffusion_RDUnet.py:180-193): returns ``(state, start_epoch)``;
+        starts at epoch 0 if the file is missing, like the reference.  The
+        optimizer state follows ``TrainState.resume``'s ladder."""
+        if checkpoint_path is None or not os.path.isfile(checkpoint_path):
+            print(f"No checkpoint found at '{checkpoint_path}'")
+            return state, 0
+        _, payload = ckpt_io.load_pth(checkpoint_path, self.unet, prefix="unet.",
+                                      allow_pickle=True)
+        start_epoch = int(payload.get("epoch", 0)) if payload else 0
+        state.resume(payload, start_epoch * self.steps_per_epoch)
+        print(f"Loaded checkpoint '{checkpoint_path}' (epoch {start_epoch})")
+        return state, start_epoch
+
+    def fit(self, state, train_loader, val_loader, num_epochs: int, start_epoch: int = 0):
+        """Epochs ``start_epoch .. num_epochs - 1``: train, validate, checkpoint;
+        a SIGTERM/SIGINT finishes the epoch and its checkpoint, then stops.
+        Returns ``(state, history)``."""
+        history = []
+        with GracefulShutdown() as stop:
+            for epoch in range(start_epoch, num_epochs):
+                t0 = time.time()
+                state, loss = self.train_epoch(state, train_loader, epoch)
+                vloss, _ = self.validate(state, val_loader, epoch)
+                self.save_epoch_checkpoint(state, epoch)
+                history.append(
+                    {"epoch": epoch, "loss": loss, "val_loss": vloss, "sec": time.time() - t0}
+                )
+                print(
+                    f"Epoch [{epoch + 1}/{num_epochs}], Loss: {loss:.4f}, "
+                    f"Validation Loss: {vloss:.4f} ({history[-1]['sec']:.1f}s)"
+                )
+                if stop.requested:
+                    print(f"[preempt] checkpointed through epoch {epoch + 1}; stopping")
+                    break
+        return state, history
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """CLI flag parity with diffusion_RDUnet.py:292-311 and the JAX package's extras."""
+    p = argparse.ArgumentParser(
+        description="Train a diffusion model with optional optimizer and scheduler choice."
+    )
+    p.add_argument("--dataset_choice", type=str, default="SIDD", choices=["DIV2K", "SIDD"])
+    p.add_argument("--checkpoint_path", type=str, default=None)
+    p.add_argument("--num_epochs", type=int, default=300)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--validation_split", type=float, default=0.2)
+    p.add_argument("--augment", action="store_false")
+    p.add_argument("--dataset_percentage", type=float, default=0.1)
+    p.add_argument("--base_filters", type=int, default=32)
+    p.add_argument("--timesteps", type=int, default=20)
+    p.add_argument("--optimizer_choice", type=str, default="adamw",
+                   choices=["adam", "adamw", "adadelta"])
+    p.add_argument("--scheduler_choice", type=str, default="step", choices=["cosine", "step"])
+    p.add_argument("--output_dir", type=str, default="checkpoints")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--distribution_choice", type=str, default="uniform",
+                   choices=["uniform", "biased"])
+    p.add_argument("--loss_weights", type=str, default="0,1,0",
+                   help="mse,charbonnier,ssim weights of combined_loss "
+                        "(diffusion_RDUnet.py:60-65 defaults 0,1,0)")
+    p.add_argument("--data_root", type=str, default="dataset",
+                   help="root containing DIV2K_train_HR.nosync / SIDD_dataset.nosync")
+    p.add_argument("--bf16", action="store_true", help="run the U-Net in bfloat16")
+    p.add_argument("--engine", type=str, default="flax", choices=list(ENGINES),
+                   help="U-Net engine: flax (the modules), xla (eager engine), "
+                        "pallas (the block kernel, recompute backward)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the eager engines' blocks in the backward")
+    p.add_argument("--param-sharding", type=str, default="replicated", choices=["replicated"],
+                   help="one card: parameters are not sharded")
+    p.add_argument("--device-data", action="store_true",
+                   help="keep the deduped uint8 patch bank in the card's memory and draw "
+                        "and degrade batches there (data/resident.py); DIV2K only")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where to train: cuda (default) or cpu")
+    return p
+
+
+def load_data_for(args, device=None):
+    """Dataset dispatch (diffusion_RDUnet.py:222-228)."""
+    from ..data.loader import load_data as load_div2k_data
+    from ..data.loader import load_sidd_data
+
+    device_data = getattr(args, "device_data", False)
+    if args.dataset_choice == "DIV2K":
+        folder = os.path.join(args.data_root, "DIV2K_train_HR.nosync")
+        return load_div2k_data(
+            folder, batch_size=args.batch_size, augment=args.augment,
+            dataset_percentage=args.dataset_percentage,
+            validation_split=args.validation_split, use_rgb=True,
+            num_workers=args.num_workers, device=device, device_data=device_data,
+        )
+    if device_data:
+        raise ValueError("--device-data currently supports DIV2K only (the "
+                         "SIDD pair bank would double the memory footprint)")
+    folder = os.path.join(args.data_root, "SIDD_dataset.nosync", "SIDD_Medium_Srgb")
+    return load_sidd_data(
+        folder, batch_size=args.batch_size, augment=args.augment,
+        dataset_percentage=args.dataset_percentage,
+        validation_split=args.validation_split, use_rgb=True,
+        num_workers=args.num_workers, device=device,
+    )
+
+
+def train(args, train_loader=None, val_loader=None):
+    """Full training entry point (diffusion_RDUnet.py:230-288).  As in the
+    JAX CLI, a resumed run leaves the loaders' ``.epoch`` where it finds it;
+    a caller that wants the resumed epochs to shuffle and draw noise as a
+    straight run would passes loaders with ``.epoch`` set to the start epoch."""
+    print(ASCII_BANNER)
+    for k, v in sorted(vars(args).items()):
+        print(f"{k}: {v}")
+
+    loss_weights = getattr(args, "loss_weights", None) or (0.0, 1.0, 0.0)
+    if isinstance(loss_weights, str):
+        loss_weights = tuple(float(w) for w in loss_weights.split(","))
+    trainer = DiffusionTrainer(
+        base_filters=args.base_filters,
+        timesteps=args.timesteps,
+        optimizer_choice=args.optimizer_choice,
+        scheduler_choice=args.scheduler_choice,
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        distribution_choice=args.distribution_choice,
+        loss_weights=loss_weights,
+        output_dir=args.output_dir,
+        compute_dtype=torch.bfloat16 if getattr(args, "bf16", False) else torch.float32,
+        engine=getattr(args, "engine", "flax"),
+        remat=getattr(args, "remat", False),
+        device=getattr(args, "device", None),
+    )
+    try:
+        from tensorboardX import SummaryWriter
+
+        log_dir = os.path.join("runs", "diffusion_checkpointed",
+                               os.path.basename(args.output_dir))
+        trainer.writer = SummaryWriter(log_dir=log_dir)
+    except ImportError:
+        pass
+
+    if train_loader is None or val_loader is None:
+        train_loader, val_loader = load_data_for(args, device=trainer.device)
+
+    state = trainer.init(steps_per_epoch=len(train_loader))
+    state, start_epoch = trainer.load_checkpoint(state, args.checkpoint_path)
+    state, history = trainer.fit(
+        state, train_loader, val_loader, args.num_epochs, start_epoch=start_epoch
+    )
+
+    final_path = os.path.join(args.output_dir, "diffusion_RDUNet_model_checkpointed_final.pth")
+    ckpt_io.save_pth(final_path, trainer.unet.state_dict(), prefix="unet.", bare=True)
+    print(f"Final model saved at {final_path}")
+    if trainer.writer is not None:
+        trainer.writer.close()
+    return state, history
+
+
+def main(argv=None):
+    args = build_arg_parser().parse_args(argv)
+    try:
+        return train(args)
+    except Exception as e:  # mirror the reference's top-level guard (:314-315)
+        print(f"An error occurred: {e}")
+        raise
+
+
+if __name__ == "__main__":
+    main()

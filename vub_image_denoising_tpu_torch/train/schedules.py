@@ -6,7 +6,9 @@ Counterpart of ``vub_image_denoising_tpu/train/schedules.py``:
   (RDUNet_model.py:193-195: step_size=3, gamma=0.5);
 - ``cosine_annealing_lr`` CosineAnnealingLR(T_max=10, eta_min=0) per epoch;
 - ``make_optimizer``      adam (betas 0.9/0.999, cosine), adamw (StepLR(3, .5)),
-  adadelta (StepLR(3, .5)), with global-norm gradient clipping in front.
+  adadelta (StepLR(3, .5)), with global-norm gradient clipping in front;
+- ``fast_forward_scheduler`` moves a schedule to a resumed step
+  (``fast_forward_opt_state``).
 
 Schedules are functions of the global step (``steps_per_epoch`` gives the
 epoch granularity).  The optimizer steps its ``LambdaLR`` once per update,
@@ -91,3 +93,20 @@ def clip_by_global_norm_(grads, max_norm: float):
     for g in grads:
         g.mul_(scale)
     return norm
+
+
+def fast_forward_scheduler(scheduler, step_count: int):
+    """Move a ``LambdaLR`` (and its optimizer's LR) to update ``step_count``.
+
+    For a resume from a ``.pth`` that carries an epoch but no optimizer state
+    (one the JAX package or the reference wrote): the reference restores only
+    the scheduler's position (diffusion_RDUnet.py:186-189), and its fresh Adam
+    restarts at t = 0 with full bias correction.  So only the LR position
+    moves; the optimizer's moments and step count stay fresh (moving Adam's
+    count while its moments are zero would skip the bias correction and make
+    the first update about 3x too large)."""
+    lrs = [base * fn(step_count) for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    scheduler.load_state_dict({**scheduler.state_dict(), "last_epoch": step_count,
+                               "_last_lr": lrs})
+    for group, lr in zip(scheduler.optimizer.param_groups, lrs):
+        group["lr"] = lr

@@ -1,7 +1,12 @@
-"""Train state.  Counterpart of ``TrainState`` in ``vub_image_denoising_tpu/train/state.py``.
+"""Train state and the resume ladder.  Counterpart of ``TrainState`` and
+``ShardedTrainerMixin._resume_opt_state`` in
+``vub_image_denoising_tpu/train/state.py``.
 
 JAX's state is an immutable pytree replaced every step; here the params are
-the model's own parameters, updated in place by the optimizer.
+the model's own parameters, updated in place by the optimizer.  A ``.pth``
+the port writes carries ``optimizer_state_dict`` and ``scheduler_state_dict``
+(the reference's keys), so it resumes exactly; the JAX package's orbax
+sidecar has no counterpart.
 """
 
 import dataclasses
@@ -9,7 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .schedules import clip_by_global_norm_
+from .schedules import clip_by_global_norm_, fast_forward_scheduler
 
 
 @dataclasses.dataclass
@@ -38,3 +43,25 @@ class TrainState:
         self.optimizer.zero_grad(set_to_none=True)
         self.scheduler.step()
         self.step += 1
+
+    def checkpoint_payload(self):
+        """The reference's optimizer and scheduler keys, filled; tensors and
+        plain values only (``torch.load(weights_only=True)`` reads them)."""
+        return {"optimizer_state_dict": self.optimizer.state_dict(),
+                "scheduler_state_dict": self.scheduler.state_dict()}
+
+    def resume(self, payload, resume_step: int):
+        """The resume ladder for a ``.pth`` payload (the params are loaded by
+        the caller): (1) a file the port wrote (``optimizer_state_dict``
+        filled): the optimizer and scheduler state exactly, and the step
+        count; (2) a file the JAX package or the reference wrote (an empty
+        ``optimizer_state_dict``, with or without ``optax_leaves``, or none):
+        the LR schedule moved to ``resume_step``, Adam's moments and step
+        fresh (``fast_forward_scheduler``)."""
+        if payload and payload.get("optimizer_state_dict"):
+            self.optimizer.load_state_dict(payload["optimizer_state_dict"])
+            self.scheduler.load_state_dict(payload["scheduler_state_dict"])
+            self.step = self.scheduler.last_epoch
+        elif resume_step > 0:
+            fast_forward_scheduler(self.scheduler, resume_step)
+            self.step = resume_step

@@ -8,18 +8,29 @@
 - StepLR(3, 0.5) per epoch, inside the per-update schedule.
 
 Batches are (N, C, H, W) tensors in [-1, 1]; the trainer moves them to its
-device (the card unless ``device="cpu"``).  Checkpointing, resume, image
-grids and the data loaders are not ported yet.
+device (the card unless ``device="cpu"``).  ``fit`` runs the epochs under
+``GracefulShutdown``, logs image grids when a writer is given, and writes
+``{model_state_dict, epoch, optimizer_state_dict, scheduler_state_dict}``
+every ``checkpoint_every`` epochs (RDUNet_model.py:252-261, both dicts
+filled); ``load_checkpoint`` resumes from it exactly.  The JAX package's
+orbax sidecar has no counterpart: the ``.pth`` holds the whole state.  JAX's
+``fit`` has no ``start_epoch``; here it continues a resumed run.
 """
 
 import dataclasses
 import math
+import os
+import time
 from typing import Any, Callable, Optional
 
 import torch
 
+from ..data.device import denormalize
 from ..models.fused_apply import rdunet_apply_fused
+from ..utils import checkpoint as ckpt_io
 from ..utils.device import resolve_device
+from ..utils.preempt import GracefulShutdown
+from ..utils.tb import add_image_grid
 from .schedules import make_optimizer
 from .state import TrainState
 
@@ -107,7 +118,11 @@ class SupervisedTrainer:
     weight_decay: float = 1e-5
     accumulation_steps: int = 4
     clip_norm: float = 1.0
+    checkpoint_every: int = 5
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_name: str = "rdunet_denoising.pth"
     compute_dtype: Any = torch.float32
+    writer: Any = None
     apply_fn: Optional[Callable] = None
     engine: str = "flax"
     remat: bool = False  # recompute the eager engine's blocks in the backward
@@ -120,9 +135,9 @@ class SupervisedTrainer:
         self.model.to(self.device)
         if self.device.type == "cuda":
             self.model.to(memory_format=torch.channels_last)
+        self.steps_per_epoch = max(1, steps_per_epoch)
         self.tx = make_optimizer("adamw", lr=self.lr, weight_decay=self.weight_decay,
-                                 scheduler_choice="step",
-                                 steps_per_epoch=max(1, steps_per_epoch),
+                                 scheduler_choice="step", steps_per_epoch=self.steps_per_epoch,
                                  clip_norm=self.clip_norm)
         state = TrainState.create(dict(self.model.named_parameters()), self.tx)
         apply = self.apply_fn
@@ -148,10 +163,75 @@ class SupervisedTrainer:
     def train_epoch(self, state, train_loader, epoch: int = 0):
         """One pass over ``train_loader``'s (noisy, clean) batches; returns
         ``(state, mean loss)``."""
-        losses = [self.train_step(state, noisy, clean)[1] for noisy, clean in train_loader]
+        losses = []
+        for batch_idx, (noisy, clean) in enumerate(train_loader):
+            state, loss = self.train_step(state, noisy, clean)
+            losses.append(loss)
+            if self.writer is not None:
+                self.writer.add_scalar("Loss/train", float(loss),
+                                       epoch * len(train_loader) + batch_idx)
         mean_loss = float(torch.stack(losses).mean()) if losses else math.nan
         return state, mean_loss
 
     def evaluate_batch(self, state, noisy):
         with torch.no_grad():
             return self.forward_fn(state.params, self.put(noisy).to(self.compute_dtype))
+
+    def maybe_checkpoint(self, state, epoch: int, force: bool = False, name: str = ""):
+        """Every ``checkpoint_every`` epochs (or with ``force``, on preemption)
+        write the reference layout to ``checkpoint_dir/checkpoint_name``
+        (``name`` overrides the file name).  Returns the path, or None."""
+        if force or (epoch + 1) % self.checkpoint_every == 0:
+            path = os.path.join(self.checkpoint_dir, name or self.checkpoint_name)
+            ckpt_io.save_pth(path, self.model.state_dict(), epoch=epoch + 1,
+                             extra=state.checkpoint_payload())
+            return path
+        return None
+
+    def load_checkpoint(self, state, checkpoint_path):
+        """Resume from a ``.pth``: returns ``(state, start_epoch)``; (state, 0)
+        when there is no file.  The optimizer state follows
+        ``TrainState.resume``'s ladder."""
+        if checkpoint_path is None or not os.path.isfile(checkpoint_path):
+            return state, 0
+        _, payload = ckpt_io.load_pth(checkpoint_path, self.model, allow_pickle=True)
+        epoch = int(payload.get("epoch", 0)) if payload else 0
+        state.resume(payload, epoch * self.steps_per_epoch)
+        return state, epoch
+
+    def log_image_grids(self, state, loader, epoch: int):
+        """Per-epoch clean/noisy/denoised grids of one batch (RDUNet_model.py:228-244)."""
+        if self.writer is None:
+            return
+        try:
+            noisy, clean = next(iter(loader))
+        except StopIteration:
+            return
+        denoised = self.evaluate_batch(state, noisy)
+        for tag, imgs in ((f"Epoch_{epoch + 1}/Clean Images", clean),
+                          (f"Epoch_{epoch + 1}/Noisy Images", noisy),
+                          (f"Epoch_{epoch + 1}/Denoised Images", denoised)):
+            add_image_grid(self.writer, tag, nhwc_unit(imgs), epoch + 1)
+
+    def fit(self, state, train_loader, num_epochs: int, val_loader=None, start_epoch: int = 0):
+        """Epochs ``start_epoch .. num_epochs - 1``; a SIGTERM/SIGINT finishes
+        the epoch, forces a checkpoint and stops.  Returns ``(state, history)``."""
+        history = []
+        with GracefulShutdown() as stop:
+            for epoch in range(start_epoch, num_epochs):
+                t0 = time.time()
+                state, mean_loss = self.train_epoch(state, train_loader, epoch)
+                self.log_image_grids(state, val_loader or train_loader, epoch)
+                if stop.requested:
+                    self.maybe_checkpoint(state, epoch, force=True)
+                    history.append({"epoch": epoch, "loss": mean_loss, "sec": time.time() - t0})
+                    print(f"[preempt] checkpointed through epoch {epoch + 1}; stopping")
+                    break
+                self.maybe_checkpoint(state, epoch)
+                history.append({"epoch": epoch, "loss": mean_loss, "sec": time.time() - t0})
+        return state, history
+
+
+def nhwc_unit(x):
+    """An NCHW batch in [-1, 1] as NHWC f32 numpy in [0, 1], for image grids."""
+    return denormalize(x.detach().float()).permute(0, 2, 3, 1).cpu().numpy()

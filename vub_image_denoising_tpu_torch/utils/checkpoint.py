@@ -96,10 +96,13 @@ def _atomic_torch_save(obj, path: str):
 
 
 def save_pth(path: str, state_dict: Mapping[str, torch.Tensor], *, epoch: Optional[int] = None,
-             prefix: str = "", bare: bool = False):
-    """Write a reference-layout ``.pth``: ``{'model_state_dict': ..., 'epoch'?}``,
-    or the bare state_dict with ``bare=True``.  ``prefix`` goes in front of
-    every key (``"unet."`` in the reference diffusion checkpoints)."""
+             prefix: str = "", extra: Optional[Mapping[str, Any]] = None, bare: bool = False):
+    """Write a reference-layout ``.pth``: ``{'model_state_dict': ..., 'epoch'?,
+    **extra}`` (``extra``: e.g. ``optimizer_state_dict`` and
+    ``scheduler_state_dict``), or the bare state_dict with ``bare=True``.
+    ``prefix`` goes in front of every key (``"unet."`` in the reference
+    diffusion checkpoints).  Keep ``extra`` to tensors and plain Python
+    values, so the file loads with ``torch.load(weights_only=True)``."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     sd = {prefix + k: v.detach().to("cpu", torch.float32).contiguous()
           for k, v in state_dict.items()}
@@ -109,6 +112,8 @@ def save_pth(path: str, state_dict: Mapping[str, torch.Tensor], *, epoch: Option
     payload: Dict[str, Any] = {"model_state_dict": sd}
     if epoch is not None:
         payload["epoch"] = epoch
+    if extra:
+        payload.update(extra)
     _atomic_torch_save(payload, path)
 
 
