@@ -46,15 +46,18 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    against the same step on ``engine="xla"`` (see ``compare_with_xla``).
    Times a step on each engine
    and splits a "pallas" step into forward blocks, glue, backward recompute,
-   the rest of the backward, and the optimizer.
+   the rest of the backward, and the optimizer; the glue with the kernel
+   weights built once per step, as the step builds them, and by every
+   launch.
 9. Serves a random-weight RDUNetT-32 (seeded, saved with ``unet.`` keys)
    with ``arch="diffusion"`` and T = 20 the same way, bf16 and f32: every
    dispatched batch launches kernel 1 14*T times, all on the tensor cores;
    the served f32 output matches the same sampler through the plain version
    on the CPU (to SERVED_SAMPLER_F32_TOL), bf16 matches f32.  Times the
    sampler per batch of 8, one RDUNetT forward at batch 16 (the 2N stack),
-   the sampler's host share (1 - T * forward(16) / sampler) and the served
-   latency.
+   the sampler's host share (1 - T * forward(16) / sampler), the served
+   latency, and the sampler on the "pallas" engine with its kernel weights
+   packed once and by every forward.
 10. Trains: ``DiffusionTrainer(engine="pallas")`` on RDUNetT-32, 8 x 3 x
    256^2 super-batches, accumulation 4, AdamW + StepLR + clip 0.1, 3 steps
    in f32 and in bf16: 56 kernel launches per step, all on the tensor cores,
@@ -77,6 +80,22 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    ``--dataset_choice SIDD``.  Times the host loader and the device bank
    per batch, a "pallas" f32 epoch fed by each (against phase 10's step)
    and the card's idle share over such an epoch.
+12. Evaluates on SIDD through the command line: writes a synthetic
+   validation pair in the SIDD files' layout and keys ((40, 32, 256, 256,
+   3) uint8 blocks, smooth fields plus noise) and a (2, 8, 256, 256, 3)
+   benchmark file, then runs ``sidd_cli validate`` on a random-weight
+   RDUNetT-32 with the CLI's defaults (10% of the blocks, batch 8, seed 0,
+   T = 20) in f32 (``--engine auto``) and in bf16, and ``sidd_cli
+   benchmark --bf16 --fused``: kernel 1 launches 14*T times per sampler
+   call, all on the tensor cores; the metric vectors of the run's outputs
+   on the card equal the CPU's with TF32 off and on; the CSVs have the JAX
+   package's layout; bf16's average PSNR is within EVAL_BF16_PSNR_GAP of
+   f32's.  Prints the time per block (wall, device) and the host share
+   beside step 9's sampler, runs the device health probe and
+   ``utils.info.print_info`` (FLOPs, peak memory, latency), and counts its
+   kernel-1 launches: RDUNet(128)'s blocks at c = 512 and 1024 go to the
+   CUDA-core variant, which is first held there against the plain block
+   in bf16.
 
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
@@ -527,11 +546,37 @@ def time_sampler(torch, ck):
         with torch.inference_mode():
             fwd16_ms = cuda_ms(torch, lambda: model(x16, t16), 3)
         out[name] = {"sampler_ms": sampler_ms, "forward16_ms": fwd16_ms,
-                     "host_share": 1 - TIMESTEPS * fwd16_ms / sampler_ms}
+                     "host_share": 1 - TIMESTEPS * fwd16_ms / sampler_ms,
+                     "pallas": time_pallas_sampler(torch, model, x, dtype)}
         print(f"sampler RDUNetT-32 8x256x256 T={TIMESTEPS} {name}: {sampler_ms:.3f} ms per batch; "
               f"forward at batch 16 {fwd16_ms:.3f} ms; host share "
-              f"{out[name]['host_share']:.4f}", flush=True)
+              f"{out[name]['host_share']:.4f}; engine pallas {out[name]['pallas']}", flush=True)
     return out
+
+
+def time_pallas_sampler(torch, model, x, dtype):
+    """The sampler per batch on the "pallas" engine, in turns: its kernel
+    weights packed by every forward (``kernel_weights=None``: each block
+    launches once per forward, so as many packs as when every launch packed
+    its own, before they were shared), once, once, by every forward."""
+    from vub_image_denoising_tpu_torch.diffusion import InterpolationDiffusion
+    from vub_image_denoising_tpu_torch.models.fused_apply import (block_kernel_weights,
+                                                                  prepare_fused_params,
+                                                                  rdunet_t_apply_fused)
+
+    params = prepare_fused_params(model.state_dict())
+    x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
+    diffusion = InterpolationDiffusion(TIMESTEPS)
+
+    def run(once):
+        kw = block_kernel_weights(params, dtype) if once else None
+        diffusion.improved_sampling(
+            lambda v, t: rdunet_t_apply_fused(params, v, t, engine="pallas", kernel_weights=kw), x)
+
+    with torch.inference_mode():
+        times = [cuda_ms(torch, lambda: run(once), 1, warmup=int(i == 0))
+                 for i, once in enumerate((False, True, True, False))]
+    return {"sampler_ms": min(times[1:3]), "sampler_repacking_ms": min(times[0], times[3])}
 
 
 def time_forward(torch, ck):
@@ -1158,11 +1203,300 @@ def time_folder_loaders(torch, device, root, card, synthetic_step_ms):
     return out
 
 
+# SIDD evaluation (phase 12): the validation pair in the real files' layout
+# and keys, (images, blocks, 256, 256, 3) uint8, and a small benchmark file.
+SIDD_VAL_SHAPE = (40, 32, IMAGE_SIZE, IMAGE_SIZE, 3)
+SIDD_BENCH_SHAPE = (2, 8, IMAGE_SIZE, IMAGE_SIZE, 3)
+SIDD_CSV_HEADER = ["Method", "MACs (G)", "Inference Time (ms)", "PSNR", "SSIM"]
+EVAL_PSNR_TOL, EVAL_SSIM_TOL = 1e-4, 1e-5  # card metrics vs the CPU's, dB and SSIM units
+EVAL_BF16_PSNR_GAP = 0.1  # |avg_psnr bf16 - f32| in dB on the same blocks
+# print_info's RDUNet(128) on one 256x256 image: (width, side, blocks per
+# forward) per level.  Kernel 1 runs its CUDA-core variant at c = 512 and 1024.
+RDUNET128_BLOCKS = [(128, 256, 4), (256, 128, 4), (512, 64, 4), (1024, 32, 2)]
+INFO_CALLS = 11  # per model: measure_inference_metrics' warm-up and 10 timed calls
+
+
+def sidd_blocks(seed, shape):
+    """uint8 (images, blocks, H, W, 3) GT blocks: smooth random fields (cells
+    of 32x32 pixels) plus mild texture; and their noisy counterpart (sigma
+    20 on the 0..255 scale, clipped).  One image per thread, each from its
+    own generator spawned from ``seed``."""
+    import numpy as np
+
+    i, p, h, w, c = shape
+    # MATLAB's column-major order, which savemat writes without a transpose
+    gt = np.empty(shape, np.uint8, order="F")
+    noisy = np.empty(shape, np.uint8, order="F")
+
+    def image(k, ss):
+        rng = np.random.default_rng(ss)
+        coarse = rng.integers(0, 256, (p, h // 32, w // 32, c), dtype=np.int16)
+        smooth = np.repeat(np.repeat(coarse, 32, axis=1), 32, axis=2)
+        np.clip(smooth + rng.integers(-12, 13, smooth.shape, dtype=np.int16), 0, 255,
+                out=smooth)
+        gt[k] = smooth
+        smooth += np.rint(rng.standard_normal(smooth.shape, np.float32) * 20).astype(np.int16)
+        noisy[k] = np.clip(smooth, 0, 255)
+
+    seeds = np.random.SeedSequence(seed).spawn(i)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(image, k, ss) for k, ss in enumerate(seeds)]:
+            f.result()
+    return gt, noisy
+
+
+def write_sidd_mats(root, seed=12):
+    """The validation pair and the benchmark file under ``root``, with the
+    SIDD files' keys; returns their paths and the arrays written."""
+    import scipy.io
+
+    gt, noisy = sidd_blocks(seed, SIDD_VAL_SHAPE)
+    _, bench = sidd_blocks(seed + 1, SIDD_BENCH_SHAPE)
+    paths = {k: os.path.join(root, f"{k}.mat") for k in ("noisy", "gt", "bench")}
+    scipy.io.savemat(paths["noisy"], {"ValidationNoisyBlocksSrgb": noisy})
+    scipy.io.savemat(paths["gt"], {"ValidationGtBlocksSrgb": gt})
+    scipy.io.savemat(paths["bench"], {"BenchmarkNoisyBlocksSrgb": bench})
+    return paths, gt
+
+
+def sidd_cli_run(torch, argv):
+    """``sidd_cli.main(argv)`` with every sampler call recorded: the kernel-1
+    launches (all, tensor-core) of the run, and each call's output tensor,
+    left on the card (no sync, so the loop's timing is untouched)."""
+    from vub_image_denoising_tpu_torch.eval import sidd_cli
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
+
+    outputs = []
+    real = sidd_cli.load_sampler
+
+    def load(*args, **kwargs):
+        sampler = real(*args, **kwargs)
+
+        def record(x):
+            y = sampler(x)
+            outputs.append(y)
+            return y
+        return record
+
+    sidd_cli.load_sampler = load
+    fused_denoising_block.launches = fused_denoising_block.tc_launches = 0
+    try:
+        t0 = time.perf_counter()
+        result = sidd_cli.main(argv)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        sidd_cli.load_sampler = real
+    return result, outputs, fused_denoising_block.launches, fused_denoising_block.tc_launches, sec
+
+
+def check_eval_metrics(torch, gt_dev, out_dev, result):
+    """The metric vectors of the run's outputs on the card (as evaluate_sidd
+    computes them), with TF32 off and on, against the same functions on the
+    CPU; the run's avg_psnr is their mean.  Returns the worst errors."""
+    import numpy as np
+
+    from vub_image_denoising_tpu_torch.eval.metrics import psnr_per_image, ssim_ref_per_image
+
+    cpu_p = psnr_per_image(gt_dev.cpu(), out_dev.cpu(), 2.0)
+    cpu_s = ssim_ref_per_image(gt_dev.cpu(), out_dev.cpu(), 2.0)
+    errs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        for on in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+            p = psnr_per_image(gt_dev, out_dev, 2.0).cpu()
+            s = ssim_ref_per_image(gt_dev, out_dev, 2.0).cpu()
+            errs[f"tf32_{'on' if on else 'off'}"] = {
+                "psnr": (p - cpu_p).abs().max().item(), "ssim": (s - cpu_s).abs().max().item()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs["avg_psnr_vs_mean"] = abs(result["avg_psnr"] - float(np.mean(cpu_p.double().numpy())))
+    errs["avg_ssim_vs_mean"] = abs(result["avg_ssim"] - float(np.mean(cpu_s.double().numpy())))
+    return errs
+
+
+def check_info_blocks(torch):
+    """Kernel 1 in bf16 at the shapes where print_info's RDUNet(128) launches
+    its CUDA-core variant, held against the plain block in f32 and timed.
+    These launches compare; the main path's are counted around print_info."""
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
+
+    records = []
+    for c, side, _ in RDUNET128_BLOCKS:
+        if c in fb.TC_WIDTHS:
+            continue
+        shape = (1, c, side, side)
+        params = block_params(torch, c, seed=c, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x32 = torch.randn(shape, generator=gen, device="cuda")
+        ref32 = fb.fused_denoising_block_plain(x32, params)
+        x = x32.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        packed = fb.pack_block_params(params, x.dtype, x.device)
+        tc_before = fb.fused_denoising_block.tc_launches
+        y = fb.fused_denoising_block(x, params, packed)
+        torch.cuda.synchronize()
+        variant = "tc" if fb.fused_denoising_block.tc_launches > tc_before else "cuda_core"
+        plain = lambda v: fb.fused_denoising_block_plain(v, params)
+        err_same, err_ref, ok, tol = held(torch, plain, y, x, ref32)
+        rec = {"shape": shape, "dtype": "bfloat16", "variant": variant,
+               "max_abs_err": err_same, "max_abs_err_vs_f32": err_ref,
+               "ms": cuda_ms(torch, lambda: fb.fused_denoising_block(x, params, packed), 3),
+               "plain_ms": cuda_ms(torch, lambda: plain(x), 3)}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(shape, "bfloat16", 2, variant)
+        print(f"check info {shape} bfloat16 ({variant}): max_abs_err vs plain(bfloat16) "
+              f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}) -> "
+              f"{'ok' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+              flush=True)
+        if variant != "cuda_core" or not ok:
+            fail(f"kernel 1 at print_info's {shape} bfloat16: {variant} variant, ok={ok}")
+        records.append(rec)
+        del params, x32, ref32, x, y, packed
+    return records
+
+
+def eval_main_path(torch, card, sampler_ms):
+    """Phase 12: SIDD validation (f32 and bf16) and the Kaggle submission
+    (bf16, --fused) through the port's CLI, on RDUNetT-32 at T = 20 with the
+    CLI's defaults; the launches, the metrics on the card against the CPU,
+    the CSVs; the health probe; print_info, its launches, and kernel 1 held
+    at the CUDA-core shapes of its RDUNet(128)."""
+    import csv
+
+    import numpy as np
+
+    from vub_image_denoising_tpu_torch.eval.sidd import _normalize_blocks, base64string_to_array
+    from vub_image_denoising_tpu_torch.models import RDUNetT
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
+    from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
+    from vub_image_denoising_tpu_torch.utils.health import probe_device_exec
+    from vub_image_denoising_tpu_torch.utils.info import print_info
+
+    per_call = 14 * TIMESTEPS
+    out = {}
+    csv.field_size_limit(1 << 24)  # a base64 block of 256x256x3 is 262144 characters
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths, gt_u8 = write_sidd_mats(tmp)
+        out["write_sec"] = time.perf_counter() - t0
+        print(f"eval: wrote the SIDD validation pair {SIDD_VAL_SHAPE} and the benchmark file "
+              f"{SIDD_BENCH_SHAPE} in {out['write_sec']:.2f} s", flush=True)
+        ck = os.path.join(tmp, "rdunet_t32.pth")
+        save_pth(ck, RDUNetT(BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict(),
+                 prefix="unet.")
+        n_all = SIDD_VAL_SHAPE[0] * SIDD_VAL_SHAPE[1]
+        n_eval = int(n_all * 0.1)
+        n_batches = -(-n_eval // 8)
+        idx = np.random.RandomState(0).choice(n_all, n_eval, replace=False)
+        gt = _normalize_blocks(gt_u8.reshape(n_all, *SIDD_VAL_SHAPE[2:])[idx])
+        gt_dev = torch.from_numpy(gt).cuda()
+        launches = {"validate_f32": 0, "validate_bf16": 0, "benchmark_bf16": 0}
+        tc = dict(launches)
+        for name, extra in (("f32", ["--engine", "auto"]), ("bf16", ["--bf16"])):
+            csv_path = os.path.join(tmp, f"benchmark_results_{name}.csv")
+            result, outputs, n_launch, n_tc, sec = sidd_cli_run(torch, [
+                "validate", "--checkpoint", ck, "--noisy-mat", paths["noisy"],
+                "--gt-mat", paths["gt"], "--csv", csv_path, *extra])
+            calls = len(outputs)
+            launches[f"validate_{name}"], tc[f"validate_{name}"] = n_launch, n_tc
+            rec = {k: result[k] for k in ("avg_psnr", "avg_ssim", "avg_inference_time_ms",
+                                          "device_inference_time_ms", "warmup_compile_ms",
+                                          "n_blocks")}
+            rec["host_share"] = 1 - rec["device_inference_time_ms"] / rec["avg_inference_time_ms"]
+            rec["sampler_calls"], rec["sec"] = calls, sec
+            rec["phase9_sampler_ms_per_block"] = sampler_ms[name]["sampler_ms"] / 8
+            rec["metrics"] = check_eval_metrics(
+                torch, gt_dev, torch.cat(outputs[1:1 + n_batches]), result)
+            with open(csv_path, newline="") as f:
+                rows = list(csv.reader(f))
+            out[f"validate_{name}"] = rec
+            print(f"eval validate {name}: {rec['n_blocks']} blocks, avg PSNR "
+                  f"{rec['avg_psnr']:.4f} dB, SSIM {rec['avg_ssim']:.6f}; "
+                  f"{rec['avg_inference_time_ms']:.3f} ms per block wall, "
+                  f"{rec['device_inference_time_ms']:.3f} device, host share "
+                  f"{rec['host_share']:.4f} (phase 9 sampler per block "
+                  f"{rec['phase9_sampler_ms_per_block']:.3f} ms); warm-up "
+                  f"{rec['warmup_compile_ms']:.1f} ms; {calls} sampler calls, {n_launch} kernel-1 "
+                  f"launches ({n_tc} on the tensor cores); metrics on the card vs the CPU "
+                  f"{rec['metrics']}; {sec:.1f} s ({card})", flush=True)
+            if calls != n_batches + 3 or n_launch != per_call * calls or n_tc != n_launch:
+                fail(f"eval validate {name}: {calls} sampler calls (want {n_batches + 3}), "
+                     f"{n_launch} launches ({n_tc} tc; want {per_call} per call)")
+            if rec["n_blocks"] != n_eval or rows[0] != SIDD_CSV_HEADER or len(rows) != 2:
+                fail(f"eval validate {name}: {rec['n_blocks']} blocks (want {n_eval}), CSV {rows}")
+            if not (math.isfinite(rec["avg_psnr"]) and math.isfinite(rec["avg_ssim"])):
+                fail(f"eval validate {name}: metrics not finite")
+            for on in ("tf32_off", "tf32_on"):
+                e = rec["metrics"][on]
+                if e["psnr"] > EVAL_PSNR_TOL or e["ssim"] > EVAL_SSIM_TOL:
+                    fail(f"eval {name}: the card's metrics ({on}) disagree with the CPU's: {e}")
+            if rec["metrics"]["avg_psnr_vs_mean"] > 1e-6 * abs(rec["avg_psnr"]):
+                fail(f"eval {name}: avg_psnr is not the mean of the per-block PSNR")
+            if rec["metrics"]["avg_ssim_vs_mean"] > 1e-6 * abs(rec["avg_ssim"]):
+                fail(f"eval {name}: avg_ssim is not the mean of the per-block SSIM")
+            del outputs
+        gap = abs(out["validate_bf16"]["avg_psnr"] - out["validate_f32"]["avg_psnr"])
+        out["bf16_psnr_gap_db"] = gap
+        print(f"eval: |avg PSNR bf16 - f32| on the same {n_eval} blocks {gap:.4f} dB (bound "
+              f"{EVAL_BF16_PSNR_GAP})", flush=True)
+        if gap > EVAL_BF16_PSNR_GAP:
+            fail(f"eval: bf16 avg PSNR {gap:.4f} dB from f32")
+
+        submit = os.path.join(tmp, "SubmitSrgb.csv")
+        result, outputs, n_launch, n_tc, sec = sidd_cli_run(torch, [
+            "benchmark", "--checkpoint", ck, "--benchmark-mat", paths["bench"],
+            "--output", submit, "--bf16", "--fused"])
+        calls = len(outputs)
+        launches["benchmark_bf16"], tc["benchmark_bf16"] = n_launch, n_tc
+        with open(submit, newline="") as f:
+            rows = list(csv.reader(f))
+        n_bench = SIDD_BENCH_SHAPE[0] * SIDD_BENCH_SHAPE[1]
+        blocks = [base64string_to_array(r[1], np.uint8, SIDD_BENCH_SHAPE[2:]) for r in rows[1:]]
+        out["benchmark_bf16"] = {"rows": len(rows) - 1, "sampler_calls": calls, "sec": sec}
+        print(f"eval benchmark bf16 --fused: {len(rows) - 1} rows, {calls} sampler calls, "
+              f"{n_launch} kernel-1 launches ({n_tc} on the tensor cores), {sec:.1f} s",
+              flush=True)
+        if (rows[0] != ["ID", "BLOCK"] or len(blocks) != n_bench
+                or [r[0] for r in rows[1:]] != [str(i) for i in range(n_bench)]
+                or calls != -(-n_bench // 8) or n_launch != per_call * calls or n_tc != n_launch):
+            fail(f"eval benchmark: {len(rows) - 1} rows, {calls} calls, {n_launch} launches")
+
+    ok, dt, detail = probe_device_exec()
+    out["health"] = {"ok": ok, "sec": dt, "detail": detail}
+    print(f"eval health probe: ok={ok} in {dt:.1f} s: {detail}", flush=True)
+    if not ok:
+        fail(f"the device health probe failed: {detail}")
+    out["info_blocks"] = check_info_blocks(torch)
+    fb.fused_denoising_block.launches = fb.fused_denoising_block.tc_launches = 0
+    out["info"] = print_info()
+    torch.cuda.synchronize()
+    launches["info"] = fb.fused_denoising_block.launches
+    tc["info"] = fb.fused_denoising_block.tc_launches
+    rdunet128 = sum(n for _, _, n in RDUNET128_BLOCKS)
+    rdunet128_tc = sum(n for c, _, n in RDUNET128_BLOCKS if c in fb.TC_WIDTHS)
+    want = INFO_CALLS * (rdunet128 + per_call), INFO_CALLS * (rdunet128_tc + per_call)
+    print(f"print_info: {launches['info']} kernel-1 launches ({tc['info']} on the tensor cores; "
+          f"want {want[0]} ({want[1]}))", flush=True)
+    if (launches["info"], tc["info"]) != want:
+        fail(f"print_info: {launches['info']} kernel-1 launches ({tc['info']} tc), want {want}")
+    for key in ("rdunet128", "sampler"):
+        if not out["info"][key]["flops"] > 0 or not out["info"][f"{key}_latency"].get(
+                "peak_memory_bytes"):
+            fail(f"print_info: no FLOPs or peak memory for {key}")
+    out["launches"], out["tc_launches"] = launches, tc
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"eval phase: {out['phase_sec']:.1f} s", flush=True)
+    return out
+
+
 def step_breakdown(torch, trainer, state, batch, step_ms):
     """Split one "pallas" step: forward (kernel-1 blocks, the rest), backward
     (the eager blocks' recompute, the rest), the optimizer (clip, AdamW,
     schedule), and what is left (gradient sums, launch gaps)."""
-    from vub_image_denoising_tpu_torch.models.fused_apply import _dense_block_xla
+    from vub_image_denoising_tpu_torch.models.fused_apply import (_dense_block_xla,
+                                                                  block_kernel_weights)
     from vub_image_denoising_tpu_torch.ops.fused_block import (fused_denoising_block,
                                                                pack_block_params)
     from vub_image_denoising_tpu_torch.train.supervised import l1_loss
@@ -1172,16 +1506,23 @@ def step_breakdown(torch, trainer, state, batch, step_ms):
     mb = TRAIN_BATCH // ACCUMULATION
     params = list(state.params.values())
 
-    def forward(with_backward):
+    def forward(with_backward, once=True):
+        """The step's micro-batch forwards (and backwards): the kernel
+        weights built once for them, as the step builds them, or with
+        ``once=False`` by every forward, as many packs as before they were
+        shared."""
+        kw = {"kernel_weights": block_kernel_weights(state.params, dtype)} if once else {}
         for i in range(ACCUMULATION):
             sl = slice(i * mb, (i + 1) * mb)
-            loss = l1_loss(trainer.forward_fn(state.params, noisy[sl].to(dtype)).float(),
+            loss = l1_loss(trainer.forward_fn(state.params, noisy[sl].to(dtype), **kw).float(),
                            clean[sl].float())
             if with_backward:
                 grads = torch.autograd.grad(loss, params)
         return grads if with_backward else None
 
-    fwd_ms = cuda_ms(torch, lambda: forward(False), 3)
+    # in turns: packed by every forward, once, once, by every forward
+    times = [cuda_ms(torch, lambda: forward(False, once), 3) for once in (False, True, True, False)]
+    fwd_ms, fwd_repack_ms = min(times[1:3]), min(times[0], times[3])
     fwd_bwd_ms = cuda_ms(torch, lambda: forward(True), 3)
     grads = forward(True)
     opt_ms = cuda_ms(torch, lambda: state.apply_gradients(grads), 5)
@@ -1199,6 +1540,7 @@ def step_breakdown(torch, trainer, state, batch, step_ms):
         recompute_ms += count * ACCUMULATION * cuda_ms(torch, lambda: _dense_block_xla(p, x), 3)
     out = {"step_ms": step_ms, "forward_ms": fwd_ms, "forward_blocks_ms": blocks_ms,
            "forward_glue_and_loss_ms": fwd_ms - blocks_ms,
+           "forward_glue_and_loss_repacking_ms": fwd_repack_ms - blocks_ms,
            "backward_ms": fwd_bwd_ms - fwd_ms, "backward_recompute_ms": recompute_ms,
            "backward_rest_ms": fwd_bwd_ms - fwd_ms - recompute_ms,
            "optimizer_ms": opt_ms, "unattributed_ms": step_ms - fwd_bwd_ms - opt_ms,
@@ -1354,6 +1696,9 @@ def main():
         torch, device)
     folder = folder_train_main_path(torch, device, card, diffusion_step_ms["pallas_f32"])
     folder_launches = {k: folder[k]["tc"] for k in ("straight", "resumed", "device_data", "sidd")}
+    evaluation = eval_main_path(torch, card, sampler)
+    eval_launches = {k: {"all": evaluation["launches"][k], "tc": evaluation["tc_launches"][k]}
+                     for k in evaluation["launches"]}
 
     def per_forward(recs, shapes, dtype):
         return [(r, cnt) for r in recs for s, cnt in shapes
@@ -1426,7 +1771,8 @@ def main():
             "replaces": "vub_image_denoising_tpu/ops/fused_block.py:193",
             "launches": (serve_launches["tc"] + train_launches["tc"]
                          + diffusion_serve_launches["tc"] + diffusion_train_launches["tc"]
-                         + sum(folder_launches.values())),
+                         + sum(folder_launches.values())
+                         + sum(evaluation["tc_launches"].values())),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -1437,6 +1783,7 @@ def main():
                                  "diffusion_serve": diffusion_serve_launches,
                                  "diffusion_train": diffusion_train_launches,
                                  "diffusion_fit": folder_launches,
+                                 "eval": eval_launches,
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
             "train_step_ms": step_ms,
@@ -1447,6 +1794,7 @@ def main():
             "diffusion_train_step_ms": diffusion_step_ms,
             "diffusion_validate": validation,
             "folder_train": folder,
+            "sidd_eval": evaluation,
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc")},
             "card": card,
         },

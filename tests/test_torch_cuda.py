@@ -254,7 +254,7 @@ def test_cuda_tc_kernel_border_padding(cuda, dtype):
 
 @pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 1), ("float32", 16, 0),
                                          ("bfloat16", 16, 0), ("bfloat16", 512, 0),
-                                         ("bfloat16", 64, 1)])
+                                         ("bfloat16", 1024, 0), ("bfloat16", 64, 1)])
 def test_cuda_variant_counters(cuda, dtype, c, tc):
     """f32 and bf16 at c in TC_WIDTHS count as a tensor-core launch; at
     other widths they launch the CUDA-core kernel.  Each output is held
@@ -292,6 +292,20 @@ def test_cuda_core_kernel_f32_at_tc_widths(cuda, shape):
     """The CUDA-core kernel's f32 build, forced at widths the wrapper sends
     to the tensor cores: the same arithmetic serves f32 at every other width."""
     _cuda_core_at_tc_width(shape, cuda, "float32")
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 64, 64), (1, 1024, 32, 32)])
+def test_cuda_core_kernel_bf16_at_rdunet128_widths(cuda, shape):
+    """The wrapper in bf16 at the shapes of RDUNet(128)'s deepest blocks on a
+    256x256 image (utils.info.print_info): the CUDA-core kernel, held
+    against the plain block in f32."""
+    params = _block(shape[1], cuda)
+    x = _input(shape, cuda, "bfloat16")
+    tc_before = fb.fused_denoising_block.tc_launches
+    y = fb.fused_denoising_block(x, params)
+    torch.cuda.synchronize()
+    assert fb.fused_denoising_block.tc_launches == tc_before
+    _check(y, x, params)
 
 
 # ---------------------------------------------------------------------------
@@ -517,3 +531,96 @@ def test_cuda_data_transforms_match_the_cpu(cuda):
                       f"{int((off & tie).sum())} at ties, {int(tie.sum())} tie pixels")
                 allowed = tie if augment else torch.zeros_like(tie)
                 assert not (off & ~allowed).any(), f"{name}: pixels off outside a rounding tie"
+
+
+# ---------------------------------------------------------------------------
+# Evaluation and the utils on the card: the metrics stay f32 exact with TF32
+# on (their 7x7 mean is avg_pool2d, no conv); every inference engine but
+# "xla" runs kernel 1, "pallas" with its weights packed once per load; the
+# FLOP count does not depend on the device; the health probe.
+# ---------------------------------------------------------------------------
+
+def test_cuda_metrics_match_the_cpu_with_tf32_on(cuda):
+    from vub_image_denoising_tpu_torch.eval import metrics
+
+    gen = torch.Generator().manual_seed(0)
+    gt = torch.rand(8, 64, 64, 3, generator=gen) * 2 - 1
+    out = (gt + 0.1 * torch.randn(8, 64, 64, 3, generator=gen)).clamp(-1, 1)
+    want_p = metrics.psnr_per_image(gt, out, 2.0)
+    want_s = metrics.ssim_ref_per_image(gt, out, 2.0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        got_p = metrics.psnr_per_image(gt.to(cuda), out.to(cuda), 2.0)
+        got_s = metrics.ssim_ref_per_image(gt.to(cuda), out.to(cuda), 2.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert got_p.is_cuda and got_s.is_cuda
+    assert (got_p.cpu() - want_p).abs().max().item() <= 1e-4
+    assert (got_s.cpu() - want_s).abs().max().item() <= 1e-5
+
+
+def test_cuda_model_summary_equals_the_cpu_count(cuda):
+    from vub_image_denoising_tpu_torch.utils.info import model_summary
+
+    model = RDUNet(3, 32, generator=torch.Generator().manual_seed(0)).eval()
+    want = model_summary(model, torch.zeros(1, 3, 64, 64))
+    model = model.to(cuda).to(memory_format=torch.channels_last)
+    x = torch.zeros(1, 3, 64, 64, device=cuda).contiguous(memory_format=torch.channels_last)
+    before = fb.fused_denoising_block.launches
+    assert model_summary(model, x) == want
+    assert fb.fused_denoising_block.launches == before  # counted on meta tensors
+
+
+def test_cuda_probe_device_exec(cuda):
+    from vub_image_denoising_tpu_torch.utils.health import probe_device_exec
+
+    ok, dt, detail = probe_device_exec(timeout_s=120.0)
+    assert ok, detail
+    assert float(detail.split()[1]) == 128.0
+
+
+@pytest.mark.parametrize("engine,launches", [("auto", 14), ("flax", 14), ("pallas", 14),
+                                             ("xla", 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_engines_launch_kernel_1(cuda, tmp_path, engine, launches, dtype):
+    """``build_apply``'s engines on the sampler: 14*T kernel-1 launches per
+    call on "auto", "flax" and "pallas", all on the tensor cores, none on
+    "xla"; "pallas" packs the 14 blocks' weights once, at load.  Every
+    engine's output is finite and within the bf16/f32 bound of "flax"'s."""
+    from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
+    from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
+
+    steps = 2
+    ck = str(tmp_path / "ck.pth")
+    save_pth(ck, _rdunet_t(torch.device("cpu")).state_dict(), prefix="unet.")
+    packs = []
+    real = fb.pack_block_params
+
+    def counting(*args):
+        packs.append(args)
+        return real(*args)
+
+    bf16 = dtype == "bfloat16"
+    ref, _ = build_apply(ck, "diffusion", 32, steps, bf16=bf16, engine="flax")
+    orig_fb, orig_fa = fb.pack_block_params, fa.pack_block_params
+    fb.pack_block_params = fa.pack_block_params = counting
+    try:
+        forward, _ = build_apply(ck, "diffusion", 32, steps, bf16=bf16, engine=engine)
+        loaded = len(packs)
+        x = torch.rand(2, 32, 40, 3, generator=torch.Generator().manual_seed(1)).to(cuda) * 2 - 1
+        counter = fb.fused_denoising_block
+        before, tc_before = counter.launches, counter.tc_launches
+        y = forward(x)
+        y = forward(x)
+        torch.cuda.synchronize()
+        got = (counter.launches - before, counter.tc_launches - tc_before)
+    finally:
+        fb.pack_block_params, fa.pack_block_params = orig_fb, orig_fa
+    assert got == (2 * launches * steps,) * 2
+    if engine == "pallas":
+        assert loaded == 14 and len(packs) == 14
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    want = ref(x)
+    tol = 2e-2 * want.abs().max().item() if bf16 else 2 * steps * 2e-4
+    assert (y - want).abs().max().item() <= tol

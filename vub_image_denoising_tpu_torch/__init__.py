@@ -14,8 +14,10 @@ module under the same names.  It imports torch and never JAX.
 - ``train``     — the supervised and the diffusion trainers (``fit``,
   checkpoints, resume), presets, and the diffusion training CLI
 - ``utils``     — ``.pth`` checkpoint IO and the JAX param-tree converter,
-  preemption-safe stops, TensorBoard image grids
-- ``eval``      — the denoising CLI and the HTTP server (``rdunet`` and ``diffusion``)
+  preemption-safe stops, TensorBoard logging, model info (FLOPs, latency,
+  peak memory), profiling, the device health probe, random streams
+- ``eval``      — the denoising CLI and the HTTP server (``rdunet`` and
+  ``diffusion``), image metrics, SIDD validation and the Kaggle submission
 """
 
 __version__ = "0.1.0"

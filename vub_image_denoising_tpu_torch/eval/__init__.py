@@ -1,1 +1,2 @@
-"""Inference entry points: the denoising CLI and the HTTP server."""
+"""Inference and evaluation entry points: the denoising CLI, the HTTP server,
+the metrics, and SIDD validation with the Kaggle submission."""

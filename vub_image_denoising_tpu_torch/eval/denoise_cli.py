@@ -9,6 +9,13 @@ card, where every DenoisingBlock is the fused CUDA kernel:
   (``--timesteps``, default 20) on an RDUNetT, one forward of the 2N stack
   per step.
 
+``--engine`` picks how the U-Net runs: ``flax`` the model's modules, every
+DenoisingBlock a kernel launch; ``pallas`` the functional forward of
+``models.fused_apply`` with the block kernel, its weights packed once per
+load; ``xla`` the same forward with the eager block (cuDNN convs, no
+kernel).  ``auto`` is ``flax`` in both dtypes: on the card the eager blocks
+are the slow path (the JAX package's "xla under bf16" was a TPU choice).
+
 Usage:
   python -m vub_image_denoising_tpu_torch.eval.denoise_cli \
       --checkpoint model.pth --input photo.png --output clean.png [--bf16]
@@ -23,16 +30,19 @@ import numpy as np
 import torch
 
 from ..diffusion.interpolation import InterpolationDiffusion
+from ..models.fused_apply import (block_kernel_weights, prepare_fused_params,
+                                  rdunet_apply_fused, rdunet_t_apply_fused)
 from ..models.rdunet import RDUNet, RDUNetT
 from ..utils import checkpoint as ckpt_io
 from ..utils.device import resolve_device
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg")
+ENGINES = ("auto", "flax", "xla", "pallas")
 
 
 def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
                 timesteps: int = 20, channels: int = 3, bf16: bool = False,
-                trusted: bool = False, device=None):
+                engine: str = "auto", trusted: bool = False, device=None):
     """Shared model/checkpoint construction for every inference entry point:
     returns ``(forward, model)``, where ``forward(batch)`` maps a normalized
     (N, H, W, C) [-1, 1] float32 tensor on the model's device to its denoised
@@ -40,10 +50,15 @@ def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
 
     ``arch="rdunet"`` is one RDUNet forward; ``arch="diffusion"`` loads an
     RDUNetT from ``unet.``-prefixed keys and runs ``timesteps`` steps of
-    ``InterpolationDiffusion.improved_sampling`` through the module.  f32
-    runs with TF32 off (``enable_strict_precision``); ``bf16=True`` runs the
+    ``InterpolationDiffusion.improved_sampling``.  ``engine`` is one of
+    ``ENGINES`` (module docstring); ``"auto"`` is ``"flax"``.  f32 runs with
+    TF32 off (``enable_strict_precision``); ``bf16=True`` runs the
     activations in bf16 with the params in f32."""
     device = resolve_device(device)
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (want one of {ENGINES})")
+    if engine == "auto":
+        engine = "flax"
     if arch == "rdunet":
         model = RDUNet(channels=channels, base_filters=base_filters)
         prefix = ""
@@ -65,11 +80,21 @@ def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
     model = model.to(device).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
+    unet = model
+    if engine != "flax":
+        params = prepare_fused_params(model.state_dict())
+        kw = block_kernel_weights(params, dtype) if engine == "pallas" else None
+        if arch == "diffusion":
+            unet = lambda x, t: rdunet_t_apply_fused(  # noqa: E731
+                params, x, t, engine=engine, kernel_weights=kw)
+        else:
+            unet = lambda x: rdunet_apply_fused(  # noqa: E731
+                params, x, engine=engine, kernel_weights=kw)
     if arch == "diffusion":
         diffusion = InterpolationDiffusion(timesteps=timesteps)
-        apply = lambda x: diffusion.improved_sampling(model, x)  # noqa: E731
+        apply = lambda x: diffusion.improved_sampling(unet, x)  # noqa: E731
     else:
-        apply = model
+        apply = unet
 
     def forward(batch):
         with torch.inference_mode():
@@ -90,13 +115,14 @@ def _pad8(images: np.ndarray) -> np.ndarray:
 
 def build_denoiser(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
                    timesteps: int = 20, channels: int = 3, bf16: bool = False,
-                   trusted: bool = False, batched: bool = False, device=None):
+                   engine: str = "auto", trusted: bool = False, batched: bool = False,
+                   device=None):
     """(fn: (H, W, C) float32 [-1, 1] numpy -> (H, W, C) float32 numpy) from a
     ``.pth``.  With ``batched=True`` the fn maps a stacked same-size batch
     (N, H, W, C) -> (N, H, W, C) in one forward, or one sampler run (the
     server's dynamic batching)."""
     forward, model = build_apply(checkpoint, arch, base_filters, timesteps, channels=channels,
-                                 bf16=bf16, trusted=trusted, device=device)
+                                 bf16=bf16, engine=engine, trusted=trusted, device=device)
     device = next(model.parameters()).device
 
     def denoise_batch(images):
@@ -126,6 +152,9 @@ def denoise_file(denoise_fn, in_path: str, out_path: str, grayscale: bool = Fals
 
 
 def main(argv=None):
+    from ..utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     p = argparse.ArgumentParser(description="Denoise images with a trained checkpoint")
     p.add_argument("--checkpoint", required=True, help=".pth (reference layout)")
     p.add_argument("--arch", default="rdunet", choices=["rdunet", "diffusion"])
@@ -137,6 +166,7 @@ def main(argv=None):
                    help="sampler steps of --arch diffusion")
     p.add_argument("--grayscale", action="store_true")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--engine", default="auto", choices=list(ENGINES))
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--trusted-checkpoint", action="store_true",
                    help="permit the full-unpickling torch.load fallback when the "
@@ -145,7 +175,7 @@ def main(argv=None):
 
     channels = 1 if args.grayscale else 3
     denoise_fn = build_denoiser(args.checkpoint, args.arch, args.base_filters, args.timesteps,
-                                channels=channels, bf16=args.bf16,
+                                channels=channels, bf16=args.bf16, engine=args.engine,
                                 trusted=args.trusted_checkpoint, device=args.device)
 
     if os.path.isdir(args.input):

@@ -26,7 +26,7 @@ Usage:
   python -m vub_image_denoising_tpu_torch.eval.serve --checkpoint ck.pth \
       --base-filters 32 --bf16 --port 8900
   python -m vub_image_denoising_tpu_torch.eval.serve --checkpoint diffusion.pth \
-      --arch diffusion --timesteps 20
+      --arch diffusion --timesteps 20 [--engine auto|flax|xla|pallas]
   curl -s -X POST --data-binary @noisy.png localhost:8900/denoise > clean.png
 """
 
@@ -39,7 +39,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from .denoise_cli import build_denoiser, resolve_device
+from .denoise_cli import ENGINES, build_denoiser, resolve_device
 
 
 class QueueFullError(Exception):
@@ -477,6 +477,9 @@ def make_server(service: DenoiseService, info: dict, host: str = "127.0.0.1",
 
 
 def main(argv=None):
+    from ..utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     p = argparse.ArgumentParser(description="Serve a denoising checkpoint over HTTP")
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--arch", default="rdunet", choices=["rdunet", "diffusion"])
@@ -485,6 +488,7 @@ def main(argv=None):
                    help="sampler steps of --arch diffusion")
     p.add_argument("--grayscale", action="store_true")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--engine", default="auto", choices=list(ENGINES))
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--trusted-checkpoint", action="store_true")
     p.add_argument("--max-batch", type=int, default=8,
@@ -505,8 +509,8 @@ def main(argv=None):
     batching = args.max_batch > 1
     denoise_fn = build_denoiser(
         args.checkpoint, args.arch, args.base_filters, args.timesteps, channels=channels,
-        bf16=args.bf16, trusted=args.trusted_checkpoint, batched=batching,
-        device=device,
+        bf16=args.bf16, engine=args.engine, trusted=args.trusted_checkpoint,
+        batched=batching, device=device,
     )
     if batching:
         service = BatchingDenoiseService(

@@ -16,8 +16,11 @@ forward takes a model's state_dict (reference keys, or as grouped by
 
 ``trainable=True`` routes the kernel through ``fused_block_trainable``,
 whose backward recomputes the eager block and differentiates it.  The
-kernel engine runs for every width: the JAX package's TPU gate
-(``c % 128 == 0`` and weights <= 4 MB) is not carried over.  The
+kernel's weight layout is built by the caller, once per set of parameter
+values (``block_kernel_weights``), and passed as ``kernel_weights``;
+without it each forward builds them once.  The kernel engine runs for every
+width: the JAX package's TPU gate (``c % 128 == 0`` and weights <= 4 MB)
+is not carried over.  The
 precombined block and the backward variants of the JAX module (measured
 negative on a TPU, off there by default) are not ported.
 """
@@ -31,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.fused_block import (
     fused_denoising_block,
     fused_denoising_block_packed,
+    pack_block_params,
     pack_block_params_packed,
 )
 from ..ops.packing import pack2x2, unpack2x2
@@ -61,6 +65,20 @@ def prepare_fused_params(variables):
         module, _, name = key.partition(".")
         grouped.setdefault(module, {})[name] = value
     return grouped
+
+
+def block_kernel_weights(variables, dtype):
+    """Kernel 1's weight layout of each of the 14 DenoisingBlocks, in the
+    compute ``dtype``: ``{block name: pack_block_params(...)}``, built on the
+    parameters' device from their values now.  The owner builds it once per
+    set of values (a loaded model once, a trainer once per optimizer step)
+    and passes it to every forward until the values change.  None for
+    parameters on the CPU, where the plain block reads them directly."""
+    p = prepare_fused_params(variables)
+    device = p[_DENSE_BLOCKS[0]]["conv_0.weight"].device
+    if device.type == "cpu":
+        return None
+    return {name: pack_block_params(p[name], dtype, device) for name in _DENSE_BLOCKS}
 
 
 def _prelu(x, alpha):
@@ -166,17 +184,20 @@ def pick_engine(engine, x):
     return engine
 
 
-def _core(p, x, engine="auto", trainable=False, remat=False):
+def _core(p, x, engine="auto", trainable=False, remat=False, kernel_weights=None):
     eng = pick_engine(engine, x)
+    if eng != "xla" and kernel_weights is None:
+        kernel_weights = block_kernel_weights(p, x.dtype)
 
     def block(name, h):
         if eng == "xla":
             if remat:
                 return checkpoint(_dense_block_xla, p[name], h, use_reentrant=False)
             return _dense_block_xla(p[name], h)
+        kw = kernel_weights[name] if kernel_weights is not None else None
         if trainable:
-            return fused_block_trainable(h, p[name])
-        return _fused_block_semantic(h, p[name])
+            return fused_block_trainable(h, p[name], kernel_weights=kw)
+        return _fused_block_semantic(h, p[name], kernel_weights=kw)
 
     def dense_pair(name_a, name_b, h):
         return block(name_b, block(name_a, h))
@@ -195,23 +216,29 @@ def _channels_last(x):
     return x.contiguous(memory_format=torch.channels_last) if x.device.type == "cuda" else x
 
 
-def rdunet_apply_fused(variables, x, engine="auto", trainable=False, remat=False):
+def rdunet_apply_fused(variables, x, engine="auto", trainable=False, remat=False,
+                       kernel_weights=None):
     """``RDUNet`` forward from its state_dict: ``core(x) + x`` for x (N, C, H, W).
 
     ``trainable=True`` makes the kernel engine differentiable (kernel
     forward, eager backward); ``remat=True`` recomputes the eager engine's
-    blocks in the backward (``torch.utils.checkpoint``)."""
+    blocks in the backward (``torch.utils.checkpoint``).  ``kernel_weights``
+    is ``block_kernel_weights(variables, x.dtype)`` of these values, or None
+    to build them in this forward."""
     x = _channels_last(x)
-    return _core(prepare_fused_params(variables), x, engine, trainable, remat) + x
+    return _core(prepare_fused_params(variables), x, engine, trainable, remat,
+                 kernel_weights) + x
 
 
-def rdunet_t_apply_fused(variables, x, t, engine="auto", trainable=False, remat=False):
+def rdunet_t_apply_fused(variables, x, t, engine="auto", trainable=False, remat=False,
+                         kernel_weights=None):
     """``RDUNetT`` forward from its state_dict: the timestep ``t`` (a scalar,
     an (N,) vector or an (N, 1, H, W) plane) is broadcast to one plane and
     concatenated as the last input channel; the residual adds x."""
     x = _channels_last(x)
     xt = torch.cat([x, t_plane(t, x)], 1)
-    return _core(prepare_fused_params(variables), xt, engine, trainable, remat) + x
+    return _core(prepare_fused_params(variables), xt, engine, trainable, remat,
+                 kernel_weights) + x
 
 
 def t_plane(t, x):

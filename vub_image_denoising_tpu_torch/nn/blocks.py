@@ -7,7 +7,8 @@ so state_dict keys match a reference ``.pth`` as they are.
 import torch
 from torch import nn
 
-from ..ops.fused_block import fused_denoising_block, pack_block_params
+from ..ops.fused_block import (fused_denoising_block, fused_denoising_block_plain,
+                               pack_block_params)
 from .layers import Conv3x3, Downsample2x2, PReLU, Upsample2x2
 
 
@@ -73,7 +74,8 @@ class DenoisingBlock(nn.Module):
     and all earlier conv outputs; the last conv's output is added to the input.
 
     The forward is ``ops.fused_block.fused_denoising_block``: the CUDA kernel on
-    the card, its plain version on the CPU.  When autograd needs a graph it
+    the card, its plain version on the CPU (and on meta tensors, which carry
+    shapes only).  When autograd needs a graph it
     is ``models.fused_apply.fused_block_trainable``: the same kernel forward,
     and a backward that differentiates the eager block.  The kernel's weight
     layout is built once per (dtype, device) and rebuilt when a parameter
@@ -104,6 +106,10 @@ class DenoisingBlock(nn.Module):
         from ..models.fused_apply import fused_block_trainable  # models import nn
 
         params = dict(self.named_parameters())
+        if x.device.type == "meta":
+            # shapes only, nothing runs: the plain block, whose convs an
+            # operation counter sees (utils/info.py counts FLOPs this way)
+            return fused_denoising_block_plain(x, params)
         weights = None
         if x.device.type != "cpu":
             x = x.contiguous(memory_format=torch.channels_last)

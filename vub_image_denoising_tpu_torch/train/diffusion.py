@@ -39,7 +39,7 @@ import torch
 from ..data.device import fold_generator
 from ..diffusion.interpolation import InterpolationDiffusion
 from ..diffusion.losses import combined_loss
-from ..models.fused_apply import rdunet_t_apply_fused
+from ..models.fused_apply import block_kernel_weights, rdunet_t_apply_fused
 from ..models.rdunet import RDUNetT
 from ..utils import checkpoint as ckpt_io
 from ..utils.device import resolve_device
@@ -72,24 +72,31 @@ def sample_timesteps(generator, n: int, timesteps: int, distribution: str = "uni
 
 def make_diffusion_train_step(unet_apply, diffusion: InterpolationDiffusion,
                               accumulation_steps: int = 1, distribution: str = "uniform",
-                              loss_weights=(0.0, 1.0, 0.0), compute_dtype=torch.float32):
+                              loss_weights=(0.0, 1.0, 0.0), compute_dtype=torch.float32,
+                              kernel_weights_fn=None):
     """The accumulate -> clip -> step function of the diffusion trainer.
 
     ``unet_apply(params, x, t) -> prediction``, with ``t`` an (N,) vector of
     normalized timesteps.  The step takes ``(state, generator, noisy,
     clean)`` and returns ``(state, mean micro-batch loss)``; each
     micro-batch draws its timesteps from ``generator``.  The interpolation
-    and the U-Net run in ``compute_dtype``; params stay f32."""
+    and the U-Net run in ``compute_dtype``; params stay f32.  With
+    ``kernel_weights_fn(params)``, the block kernels' weights are built once
+    per step and shared by its micro-batches, as in
+    ``make_supervised_train_step``."""
     mse_w, charb_w, ssim_w = loss_weights
     T = diffusion.timesteps
 
     def step(state: TrainState, generator, noisy, clean):
+        kw = {} if kernel_weights_fn is None else {
+            "kernel_weights": kernel_weights_fn(state.params)}
+
         def micro_loss(sl):
             t = sample_timesteps(generator, clean[sl].shape[0], T, distribution).to(noisy.device)
             alpha = (t / T).reshape(-1, 1, 1, 1).to(compute_dtype)
             interpolated = (alpha * noisy[sl].to(compute_dtype)
                             + (1 - alpha) * clean[sl].to(compute_dtype))
-            pred = unet_apply(state.params, interpolated, (t / T).to(compute_dtype))
+            pred = unet_apply(state.params, interpolated, (t / T).to(compute_dtype), **kw)
             return combined_loss(pred.float(), clean[sl].float(), mse_weight=mse_w,
                                  charbonnier_weight=charb_w, ssim_weight=ssim_w)
 
@@ -157,16 +164,22 @@ class DiffusionTrainer:
                                  scheduler_choice=self.scheduler_choice,
                                  steps_per_epoch=self.steps_per_epoch, clip_norm=self.clip_norm)
         state = TrainState.create(dict(self.unet.named_parameters()), self.tx)
+        kernel_weights_fn = None
         if self.engine == "flax":
             self.unet_apply = lambda p, x, t: self.unet(x, t)  # noqa: E731 — p are its parameters
         else:
             eng, rm = self.engine, self.remat
-            self.unet_apply = lambda p, x, t: rdunet_t_apply_fused(  # noqa: E731
-                p, x, t, engine=eng, trainable=eng == "pallas", remat=rm)
+            self.unet_apply = lambda p, x, t, kernel_weights=None: (  # noqa: E731
+                rdunet_t_apply_fused(p, x, t, engine=eng, trainable=eng == "pallas", remat=rm,
+                                     kernel_weights=kernel_weights))
+            if eng == "pallas":
+                dtype = self.compute_dtype
+                kernel_weights_fn = lambda p: block_kernel_weights(p, dtype)  # noqa: E731
+        self.kernel_weights_fn = kernel_weights_fn
         self._step = make_diffusion_train_step(
             self.unet_apply, self.diffusion, self.accumulation_steps,
             distribution=self.distribution_choice, loss_weights=tuple(self.loss_weights),
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, kernel_weights_fn=kernel_weights_fn)
         return state
 
     def put(self, batch):
@@ -206,7 +219,9 @@ class DiffusionTrainer:
                   else self.diffusion.improved_sampling)
         noisy, clean = self.put(noisy), self.put(clean)
         with torch.no_grad():
-            denoised = sample(lambda x, t: self.unet_apply(state.params, x, t),
+            kw = {} if self.kernel_weights_fn is None else {
+                "kernel_weights": self.kernel_weights_fn(state.params)}
+            denoised = sample(lambda x, t: self.unet_apply(state.params, x, t, **kw),
                               noisy.to(self.compute_dtype))
             vloss = float(combined_loss(denoised.float(), clean.float()))
         if self.writer is not None:
@@ -391,7 +406,10 @@ def train(args, train_loader=None, val_loader=None):
 
 
 def main(argv=None):
+    from ..utils.cache import enable_compilation_cache
+
     args = build_arg_parser().parse_args(argv)
+    enable_compilation_cache()
     try:
         return train(args)
     except Exception as e:  # mirror the reference's top-level guard (:314-315)

@@ -26,7 +26,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..data.device import denormalize
-from ..models.fused_apply import rdunet_apply_fused
+from ..models.fused_apply import block_kernel_weights, rdunet_apply_fused
 from ..utils import checkpoint as ckpt_io
 from ..utils.device import resolve_device
 from ..utils.preempt import GracefulShutdown
@@ -54,6 +54,7 @@ def make_supervised_train_step(
     accumulation_steps: int = 1,
     loss_fn: Optional[Callable] = None,
     compute_dtype=torch.float32,
+    kernel_weights_fn: Optional[Callable] = None,
 ):
     """The accumulate -> clip -> step function.
 
@@ -62,12 +63,18 @@ def make_supervised_train_step(
     micro_batch and returns ``(state, mean micro-batch loss)``; the state's
     params and optimizer are updated in place.  Inputs are cast to
     ``compute_dtype``; params stay f32.  (The optimizer lives in the state,
-    so this takes no ``tx``.)"""
+    so this takes no ``tx``.)  With ``kernel_weights_fn(params)``, the
+    block kernels' weights are built once per step, before its update, and
+    every micro-batch's ``apply_fn(params, noisy, kernel_weights=...)``
+    shares them."""
     loss_fn = loss_fn or l1_loss
 
     def step(state: TrainState, noisy, clean):
+        kw = {} if kernel_weights_fn is None else {
+            "kernel_weights": kernel_weights_fn(state.params)}
+
         def micro_loss(sl):
-            pred = apply_fn(state.params, noisy[sl].to(compute_dtype))
+            pred = apply_fn(state.params, noisy[sl].to(compute_dtype), **kw)
             return loss_fn(pred.float(), clean[sl].float())
 
         return accumulate_and_apply(state, noisy.shape[0], accumulation_steps, micro_loss)
@@ -140,17 +147,22 @@ class SupervisedTrainer:
                                  scheduler_choice="step", steps_per_epoch=self.steps_per_epoch,
                                  clip_norm=self.clip_norm)
         state = TrainState.create(dict(self.model.named_parameters()), self.tx)
-        apply = self.apply_fn
+        apply, kernel_weights_fn = self.apply_fn, None
         if apply is None:
             if self.engine == "flax":
                 apply = lambda p, x: self.model(x)  # noqa: E731 — p are its parameters
             else:
                 eng, rm = self.engine, self.remat
-                apply = lambda p, x: rdunet_apply_fused(  # noqa: E731
-                    p, x, engine=eng, trainable=eng == "pallas", remat=rm)
+                apply = lambda p, x, kernel_weights=None: rdunet_apply_fused(  # noqa: E731
+                    p, x, engine=eng, trainable=eng == "pallas", remat=rm,
+                    kernel_weights=kernel_weights)
+                if eng == "pallas":
+                    dtype = self.compute_dtype
+                    kernel_weights_fn = lambda p: block_kernel_weights(p, dtype)  # noqa: E731
         self.forward_fn = apply
         self._step = make_supervised_train_step(apply, self.accumulation_steps,
-                                                compute_dtype=self.compute_dtype)
+                                                compute_dtype=self.compute_dtype,
+                                                kernel_weights_fn=kernel_weights_fn)
         return state
 
     def put(self, batch):

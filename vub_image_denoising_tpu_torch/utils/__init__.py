@@ -1,1 +1,1 @@
-"""Checkpoint IO."""
+"""Checkpoint IO, logging, profiling, model info and device utilities."""
