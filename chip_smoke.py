@@ -4,13 +4,14 @@
 Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the four DenoisingBlock libraries from ``csrc/`` with nvcc, in
-   parallel: kernel 1 on the CUDA cores (NHWC, f32 and bf16 outside
-   TC_WIDTHS), kernel 1 on the tensor cores (bf16, and f32 as 3xTF32,
+2. Builds the five DenoisingBlock libraries from ``csrc/`` with nvcc, in
+   parallel: kernel 1 on the CUDA cores (NHWC, f32 and bf16 at c = 16, 48,
+   ...), kernel 1 on the tensor cores (bf16, and f32 as 3xTF32,
    ``fused_block_tc.cu``), kernel 2 (2x2 even-packed) on the tensor cores
    (``fused_block_packed_tc.cu``, the same body as kernel 1's) and on the
-   CUDA cores; prints each nvcc time and each kernel's ptxas registers and
-   spills, by library.
+   CUDA cores, and the wide form of both above width 256
+   (``fused_block_wide_tc.cu``); prints each nvcc time and each kernel's
+   ptxas registers and spills, by library.
 3. Holds kernel 1 against its plain PyTorch version on the card at every
    block shape of an RDUNet-32 forward on 8 x 256^2 images, at the four
    micro-batch-2 shapes of a train step, on a ragged shape and on a constant
@@ -91,11 +92,31 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    on the card equal the CPU's with TF32 off and on; the CSVs have the JAX
    package's layout; bf16's average PSNR is within EVAL_BF16_PSNR_GAP of
    f32's.  Prints the time per block (wall, device) and the host share
-   beside step 9's sampler, runs the device health probe and
-   ``utils.info.print_info`` (FLOPs, peak memory, latency), and counts its
-   kernel-1 launches: RDUNet(128)'s blocks at c = 512 and 1024 go to the
-   CUDA-core variant, which is first held there against the plain block
-   in bf16.
+   beside step 9's sampler, and runs the device health probe.
+13. Kernel 1 above width 256: holds the wide form
+   (``csrc/fused_block_wide_tc.cu``) against the plain block at
+   RDUNet(128)'s c = 512 and 1024 shapes on a 256^2 image, at batch 4 and
+   on a ragged image, f32 (F32_TOL) and bf16, each launch counted once as
+   a tensor-core block of the wide form, timed beside the plain cuDNN block
+   (TF32 off) and the bound; kernel 2's wide form against its plain
+   version and, unpacked, kernel 1 bit for bit.  Runs
+   ``utils.info.print_info`` in f32 and in bf16 (RDUNet(128) and the T = 20
+   sampler, FLOPs, peak memory, latency): 3234 kernel-1 launches each, all
+   on the tensor cores, 66 through the wide form; and the f32 RDUNet(128)
+   forward on a 256^2 image against the CPU's (SERVED_F32_TOL).
+14. Trains ``rdunet_supervised_main``'s trainer (RDUNet(128), f32, engine
+   "flax", AdamW, accumulation 4) on batches of 4 x 256^2: 3 steps of 56
+   launches (24 wide), all on the tensor cores, finite losses, params that
+   move; one SGD step against the "xla" engine's; the step's ms.
+15. Trains the GAN family at full width on grayscale 256^2 pairs, batch 8,
+   3 rounds each through its trainer's ``fit``: the RCA-GAN (critic fc1
+   262,144 -> 1024), the attention-U-Net GAN and the diffusion-GAN hybrid
+   (``rca_gan_diffusion_trainer``): finite losses, params that move, a
+   checkpoint read back equal, ms per round.  One round of each at 2 x 64^2
+   on the card equals the CPU's in f64 (losses GAN_RTOL, clipped gradients
+   GAN_RTOL / GAN_ATOL_OF_MAX * max|g|; TF32 off, cuDNN deterministic); in
+   f32 both devices' rounds stay within GAN_F32_LOSS_RTOL and
+   GAN_F32_GRAD_OF_LEAF / GAN_F32_GRAD_FLOOR of that f64 round.
 
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
@@ -113,6 +134,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -592,11 +614,12 @@ def time_forward(torch, ck):
     return out
 
 
-LIBRARIES = ("fused_block", "fused_block_tc", "fused_block_packed", "fused_block_packed_tc")
+LIBRARIES = ("fused_block", "fused_block_tc", "fused_block_packed", "fused_block_packed_tc",
+             "fused_block_wide_tc")
 
 
 def build_kernels():
-    """Build the four kernel libraries at once (one nvcc each) and print each
+    """Build the kernel libraries at once (one nvcc each) and print each
     nvcc time and each kernel's registers and spills as ptxas reports them.
     Returns {library: {kernel: ptxas numbers}}: the two tensor-core libraries
     hold kernels of one name, told apart by the layout argument."""
@@ -608,7 +631,7 @@ def build_kernels():
     t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
         for fut in [pool.submit(f) for f in (fb._library, fb._tc_library, fb._packed_library,
-                                             fb._packed_tc_library)]:
+                                             fb._packed_tc_library, fb._wide_library)]:
             fut.result()
     print(f"build {', '.join(l + '.cu' for l in LIBRARIES)}: {time.monotonic() - t0:.1f} s wall "
           "(nvcc " + ", ".join(f"{l} {cuda_build.build_seconds[l]:.1f} s" for l in LIBRARIES)
@@ -1210,10 +1233,6 @@ SIDD_BENCH_SHAPE = (2, 8, IMAGE_SIZE, IMAGE_SIZE, 3)
 SIDD_CSV_HEADER = ["Method", "MACs (G)", "Inference Time (ms)", "PSNR", "SSIM"]
 EVAL_PSNR_TOL, EVAL_SSIM_TOL = 1e-4, 1e-5  # card metrics vs the CPU's, dB and SSIM units
 EVAL_BF16_PSNR_GAP = 0.1  # |avg_psnr bf16 - f32| in dB on the same blocks
-# print_info's RDUNet(128) on one 256x256 image: (width, side, blocks per
-# forward) per level.  Kernel 1 runs its CUDA-core variant at c = 512 and 1024.
-RDUNET128_BLOCKS = [(128, 256, 4), (256, 128, 4), (512, 64, 4), (1024, 32, 2)]
-INFO_CALLS = 11  # per model: measure_inference_metrics' warm-up and 10 timed calls
 
 
 def sidd_blocks(seed, shape):
@@ -1316,62 +1335,19 @@ def check_eval_metrics(torch, gt_dev, out_dev, result):
     return errs
 
 
-def check_info_blocks(torch):
-    """Kernel 1 in bf16 at the shapes where print_info's RDUNet(128) launches
-    its CUDA-core variant, held against the plain block in f32 and timed.
-    These launches compare; the main path's are counted around print_info."""
-    from vub_image_denoising_tpu_torch.ops import fused_block as fb
-
-    records = []
-    for c, side, _ in RDUNET128_BLOCKS:
-        if c in fb.TC_WIDTHS:
-            continue
-        shape = (1, c, side, side)
-        params = block_params(torch, c, seed=c, device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        x32 = torch.randn(shape, generator=gen, device="cuda")
-        ref32 = fb.fused_denoising_block_plain(x32, params)
-        x = x32.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        packed = fb.pack_block_params(params, x.dtype, x.device)
-        tc_before = fb.fused_denoising_block.tc_launches
-        y = fb.fused_denoising_block(x, params, packed)
-        torch.cuda.synchronize()
-        variant = "tc" if fb.fused_denoising_block.tc_launches > tc_before else "cuda_core"
-        plain = lambda v: fb.fused_denoising_block_plain(v, params)
-        err_same, err_ref, ok, tol = held(torch, plain, y, x, ref32)
-        rec = {"shape": shape, "dtype": "bfloat16", "variant": variant,
-               "max_abs_err": err_same, "max_abs_err_vs_f32": err_ref,
-               "ms": cuda_ms(torch, lambda: fb.fused_denoising_block(x, params, packed), 3),
-               "plain_ms": cuda_ms(torch, lambda: plain(x), 3)}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(shape, "bfloat16", 2, variant)
-        print(f"check info {shape} bfloat16 ({variant}): max_abs_err vs plain(bfloat16) "
-              f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}) -> "
-              f"{'ok' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
-              flush=True)
-        if variant != "cuda_core" or not ok:
-            fail(f"kernel 1 at print_info's {shape} bfloat16: {variant} variant, ok={ok}")
-        records.append(rec)
-        del params, x32, ref32, x, y, packed
-    return records
-
-
 def eval_main_path(torch, card, sampler_ms):
     """Phase 12: SIDD validation (f32 and bf16) and the Kaggle submission
     (bf16, --fused) through the port's CLI, on RDUNetT-32 at T = 20 with the
     CLI's defaults; the launches, the metrics on the card against the CPU,
-    the CSVs; the health probe; print_info, its launches, and kernel 1 held
-    at the CUDA-core shapes of its RDUNet(128)."""
+    the CSVs; the health probe."""
     import csv
 
     import numpy as np
 
     from vub_image_denoising_tpu_torch.eval.sidd import _normalize_blocks, base64string_to_array
     from vub_image_denoising_tpu_torch.models import RDUNetT
-    from vub_image_denoising_tpu_torch.ops import fused_block as fb
     from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
     from vub_image_denoising_tpu_torch.utils.health import probe_device_exec
-    from vub_image_denoising_tpu_torch.utils.info import print_info
 
     per_call = 14 * TIMESTEPS
     out = {}
@@ -1468,26 +1444,528 @@ def eval_main_path(torch, card, sampler_ms):
     print(f"eval health probe: ok={ok} in {dt:.1f} s: {detail}", flush=True)
     if not ok:
         fail(f"the device health probe failed: {detail}")
-    out["info_blocks"] = check_info_blocks(torch)
-    fb.fused_denoising_block.launches = fb.fused_denoising_block.tc_launches = 0
-    out["info"] = print_info()
-    torch.cuda.synchronize()
-    launches["info"] = fb.fused_denoising_block.launches
-    tc["info"] = fb.fused_denoising_block.tc_launches
-    rdunet128 = sum(n for _, _, n in RDUNET128_BLOCKS)
-    rdunet128_tc = sum(n for c, _, n in RDUNET128_BLOCKS if c in fb.TC_WIDTHS)
-    want = INFO_CALLS * (rdunet128 + per_call), INFO_CALLS * (rdunet128_tc + per_call)
-    print(f"print_info: {launches['info']} kernel-1 launches ({tc['info']} on the tensor cores; "
-          f"want {want[0]} ({want[1]}))", flush=True)
-    if (launches["info"], tc["info"]) != want:
-        fail(f"print_info: {launches['info']} kernel-1 launches ({tc['info']} tc), want {want}")
-    for key in ("rdunet128", "sampler"):
-        if not out["info"][key]["flops"] > 0 or not out["info"][f"{key}_latency"].get(
-                "peak_memory_bytes"):
-            fail(f"print_info: no FLOPs or peak memory for {key}")
     out["launches"], out["tc_launches"] = launches, tc
     out["phase_sec"] = time.perf_counter() - phase_t0
     print(f"eval phase: {out['phase_sec']:.1f} s", flush=True)
+    return out
+
+
+# Phase 13: kernel 1's wide form (csrc/fused_block_wide_tc.cu) at c > 256:
+# RDUNet(128)'s c = 512 and 1024 blocks on one 256^2 image, the c = 512
+# block at batch 4, and a ragged image (neither side a multiple of the 8 x 16
+# tile); kernel 2's wide form at the first shape.
+WIDE_SHAPES = [(1, 512, 64, 64), (1, 1024, 32, 32), (4, 512, 64, 64), (2, 512, 20, 36)]
+WIDE_PACKED_SHAPE = (1, 512, 64, 64)
+# print_info's RDUNet(128) on one 256x256 image: (width, side, blocks per
+# forward) per level; c = 512 and 1024 run the wide form.
+RDUNET128_BLOCKS = [(128, 256, 4), (256, 128, 4), (512, 64, 4), (1024, 32, 2)]
+INFO_CALLS = 11  # per model: measure_inference_metrics' warm-up and 10 timed calls
+# Phase 14: rdunet_supervised_main's trainer (train/presets.py): RDUNet(128),
+# f32, batch 4 of 256^2 (UNet/RDUNet_model.py:270-283), accumulation 4.
+SUPERVISED128_BATCH = 4
+# Phase 15: the GAN family on grayscale 256^2 pairs, batch 8, 3 rounds each;
+# one round at 2 x 64^2 on the card against the CPU.
+GAN_SIDE, GAN_BATCH, GAN_ROUNDS = 256, 8, 3
+GAN_CHECK_SHAPE = (2, 1, 64, 64)
+GAN_RTOL, GAN_ATOL_OF_MAX = 1e-4, 1e-6  # losses rtol; grads rtol, atol * max|g|
+# An f32 round against the f64 round, as tests/test_torch_gan.py holds one
+# (ROUND_*): at 2 x 64^2 f32 rounding alone moves a round's losses by up
+# to 9e-4 of themselves and a gradient leaf by up to 0.2 of this limit,
+# which is each leaf's own max|g| times GAN_F32_GRAD_OF_LEAF plus the
+# largest leaf's times GAN_F32_GRAD_FLOOR (the floor for leaves whose exact
+# gradient is zero: a conv bias before a training-mode BatchNorm).
+GAN_F32_LOSS_RTOL, GAN_F32_GRAD_OF_LEAF, GAN_F32_GRAD_FLOOR = 5e-3, 0.5, 1e-3
+
+
+def counts(counter):
+    return (counter.launches, counter.tc_launches, counter.wide_launches)
+
+
+def reset_counts(counter):
+    counter.launches = counter.tc_launches = counter.wide_launches = 0
+
+
+def check_wide_kernel(torch, device):
+    """Kernel 1's wide form against the plain block at WIDE_SHAPES in f32
+    and bf16 (``held``), each launch one block on the tensor cores through
+    the wide form; kernel 2's wide form at WIDE_PACKED_SHAPE against its
+    plain version and, unpacked, kernel 1 (bit for bit).  Times each beside
+    the plain cuDNN block (TF32 off) and the bound.  Returns the records."""
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
+    from vub_image_denoising_tpu_torch.ops.packing import pack2x2, unpack2x2
+
+    k1, k2 = fb.fused_denoising_block, fb.fused_denoising_block_packed
+    records, packed_records = [], []
+    for shape in WIDE_SHAPES:
+        c = shape[1]
+        params = block_params(torch, c, seed=c, device=device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        x32 = torch.randn(shape, generator=gen, device=device)
+        ref32 = fb.fused_denoising_block_plain(x32, params)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = x32.to(dtype).contiguous(memory_format=torch.channels_last)
+            packed = fb.pack_block_params(params, dtype, device)
+            before = counts(k1)
+            y = k1(x, params, packed)
+            torch.cuda.synchronize()
+            counted = tuple(a - b for a, b in zip(counts(k1), before))
+            plain = lambda v: fb.fused_denoising_block_plain(v, params)
+            err_same, err_ref, ok, tol = held(torch, plain, y, x, ref32)
+            rec = {"shape": shape, "dtype": name, "variant": fb.block_variant(dtype, c),
+                   "max_abs_err": err_same, "max_abs_err_vs_f32": err_ref,
+                   "ms": cuda_ms(torch, lambda: k1(x, params, packed), 10),
+                   "plain_ms": cuda_ms(torch, lambda: plain(x), 5)}
+            rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, x.element_size())
+            print(f"check wide {shape} {name}: max_abs_err vs plain({name}) {err_same:.3e}, "
+                  f"vs reference {err_ref:.3e} ({tol}) -> {'ok' if ok else 'FAIL'}; kernel "
+                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                  f"{block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s", flush=True)
+            if rec["variant"] != "tc_wide" or counted != (1, 1, 1):
+                fail(f"kernel 1 at {shape} {name}: variant {rec['variant']}, counted "
+                     f"(launches, tc, wide) {counted}, want (1, 1, 1)")
+            if not ok:
+                fail(f"the wide form disagrees with the plain block at {shape} {name}")
+            records.append(rec)
+        del params, x32, ref32, x, y, packed
+
+    shape = WIDE_PACKED_SHAPE
+    c = shape[1]
+    params = block_params(torch, c, seed=c, device=device)
+    pq = fb.pack_block_params_packed(params)
+    gen = torch.Generator(device=device).manual_seed(1)
+    x32 = torch.randn(shape, generator=gen, device=device).contiguous(
+        memory_format=torch.channels_last)
+    ref32 = fb.fused_denoising_block_packed_plain(pack2x2(x32), pq)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        x = x32.to(dtype)
+        xq = pack2x2(x)
+        kw = fb.kernel_weights_from_packed(pq, dtype)
+        kw1 = fb.pack_block_params(params, dtype, device)
+        before = counts(k2)
+        yq = k2(xq, pq, kw)
+        torch.cuda.synchronize()
+        counted = tuple(a - b for a, b in zip(counts(k2), before))
+        plain = lambda v: fb.fused_denoising_block_packed_plain(v, pq)
+        err_same, err_ref, ok, tol = held(torch, plain, yq, xq, ref32)
+        one = k1(x, params, kw1)
+        torch.cuda.synchronize()
+        same = torch.equal(unpack2x2(yq), one)
+        rec = {"shape": shape, "dtype": name, "variant": "tc_wide", "max_abs_err": err_same,
+               "kernel1_max_abs_diff": (unpack2x2(yq).float() - one.float()).abs().max().item(),
+               "ms": cuda_ms(torch, lambda: k2(xq, pq, kw), 10),
+               "kernel1_ms": cuda_ms(torch, lambda: k1(x, params, kw1), 10),
+               "plain_ms": cuda_ms(torch, lambda: plain(xq), 5)}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, xq.element_size())
+        print(f"check packed wide {shape} {name}: max_abs_err vs plain({name}) {err_same:.3e}, "
+              f"vs reference {err_ref:.3e} ({tol}); unpacked vs kernel 1: max abs diff "
+              f"{rec['kernel1_max_abs_diff']} (must be 0.0) -> "
+              f"{'ok' if ok and same else 'FAIL'}; kernel {rec['ms']:.4f} ms, kernel 1 "
+              f"{rec['kernel1_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms", flush=True)
+        if counted != (1, 1, 1) or not ok or not same:
+            fail(f"kernel 2's wide form at {shape} {name}: counted {counted}, ok={ok}, "
+                 f"equal to kernel 1: {same}")
+        packed_records.append(rec)
+    return records, packed_records
+
+
+def rdunet128_main_path(torch, device):
+    """Phase 13's main path: ``print_info`` in f32 and in bf16 (RDUNet(128)
+    and the T = 20 sampler, 11 calls each): every kernel-1 launch on the
+    tensor cores, 6 of RDUNet(128)'s 14 through the wide form; then the f32
+    RDUNet(128) forward on a 256^2 image against the same forward on the CPU
+    (TF32 off), and both dtypes' forward timed."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.utils.info import print_info
+
+    blocks = sum(n for _, _, n in RDUNET128_BLOCKS)
+    wide = sum(n for c, _, n in RDUNET128_BLOCKS if c > 256)
+    per_call = 14 * TIMESTEPS
+    out = {"launches": {}}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        reset_counts(k1)
+        info = print_info(dtype=dtype)
+        torch.cuda.synchronize()
+        got = counts(k1)
+        want = (INFO_CALLS * (blocks + per_call),) * 2 + (INFO_CALLS * wide,)
+        out["launches"][f"info_{name}"] = dict(zip(("all", "tc", "wide"), got))
+        lat = info["rdunet128_latency"]
+        out[f"info_{name}"] = {
+            "rdunet128_flops": info["rdunet128"]["flops"],
+            "rdunet128_params": info["rdunet128"].get("params"),
+            "rdunet128_ms": lat["avg_inference_sec"] * 1e3,
+            "rdunet128_std_ms": lat["std_inference_sec"] * 1e3,
+            "rdunet128_peak_memory_bytes": lat.get("peak_memory_bytes"),
+            "sampler_ms": info["sampler_latency"]["avg_inference_sec"] * 1e3}
+        print(f"print_info {name}: RDUNet(128) {out[f'info_{name}']['rdunet128_ms']:.3f} ms; "
+              f"{got[0]} kernel-1 launches ({got[1]} on the tensor cores, {got[2]} through the "
+              f"wide form; want {want})", flush=True)
+        if got != want:
+            fail(f"print_info {name}: (launches, tc, wide) {got}, want {want}")
+        for key in ("rdunet128", "sampler"):
+            if not info[key]["flops"] > 0 or not info[f"{key}_latency"].get("peak_memory_bytes"):
+                fail(f"print_info {name}: no FLOPs or peak memory for {key}")
+
+    model = RDUNet(3, 128, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.rand(1, 3, IMAGE_SIZE, IMAGE_SIZE, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = model(x)
+        out["cpu_forward_sec"] = time.perf_counter() - t0
+        gpu = model.to(device).to(memory_format=torch.channels_last)
+        xd = x.to(device).contiguous(memory_format=torch.channels_last)
+        reset_counts(k1)
+        y = gpu(xd)
+        torch.cuda.synchronize()
+        got = counts(k1)
+        out["launches"]["forward_f32"] = dict(zip(("all", "tc", "wide"), got))
+        err = (y.cpu() - want).abs().max().item()
+        yb = gpu(xd.to(torch.bfloat16)).float()
+        err_bf16 = (yb - y).abs().max().item() / y.abs().max().item()
+        out["forward_f32_max_abs_err_vs_cpu"], out["forward_bf16_rel_err_vs_f32"] = err, err_bf16
+        out["forward_ms"] = {
+            "f32": cuda_ms(torch, lambda: gpu(xd), 10),
+            "bf16": cuda_ms(torch, lambda: gpu(xd.to(torch.bfloat16)), 10)}
+    print(f"RDUNet(128) forward 1x256x256: f32 {out['forward_ms']['f32']:.3f} ms, bf16 "
+          f"{out['forward_ms']['bf16']:.3f} ms; f32 vs the CPU forward max abs err {err:.3e} "
+          f"(<= {SERVED_F32_TOL}), bf16 vs f32 {err_bf16:.3e} of max|y| (<= "
+          f"{SERVED_BF16_REL_TOL}); {got} (launches, tc, wide); CPU forward "
+          f"{out['cpu_forward_sec']:.1f} s", flush=True)
+    if got != (blocks, blocks, wide) or not err <= SERVED_F32_TOL or not (
+            err_bf16 <= SERVED_BF16_REL_TOL):
+        fail(f"RDUNet(128) forward: (launches, tc, wide) {got}, f32 error {err}, bf16 {err_bf16}")
+    return out
+
+
+def supervised128_main_path(torch, device):
+    """Phase 14: rdunet_supervised_main's trainer (RDUNet(128), f32, engine
+    "flax", AdamW(1e-4, wd 1e-5), accumulation 4) takes TRAIN_STEPS steps on
+    batches of 4 x 256^2 at sigma 25: finite losses, params that move, 14
+    kernel-1 launches per micro-batch forward, all on the tensor cores (6
+    through the wide form); one SGD step against the same step on the
+    "xla" engine (STEP_RTOL / STEP_ATOL, as compare_with_xla); the step's ms."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.train import TrainState, make_supervised_train_step
+    from vub_image_denoising_tpu_torch.train.presets import rdunet_supervised_trainer
+
+    init = RDUNet(3, 128, generator=torch.Generator().manual_seed(0)).state_dict()
+
+    def make(engine):
+        model = RDUNet(3, 128)
+        model.load_state_dict(init)
+        trainer = rdunet_supervised_trainer(model, engine=engine, device=device)
+        return trainer, trainer.init(steps_per_epoch=TRAIN_STEPS)
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        clean = torch.rand(SUPERVISED128_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE, generator=gen,
+                           device=device) * 2 - 1
+        batches.append((clean + SIGMA * torch.randn(clean.shape, generator=gen, device=device),
+                        clean))
+    acc = 4
+    want = (14 * acc, 14 * acc, 6 * acc)
+    out = {"steps": []}
+    trainer, state = make("flax")
+    if trainer.accumulation_steps != acc:
+        fail(f"rdunet_supervised_trainer accumulates {trainer.accumulation_steps}, want {acc}")
+    reset_counts(k1)
+    for i, (noisy, clean) in enumerate(batches):
+        before = counts(k1)
+        state, loss = trainer.train_step(state, noisy, clean)
+        got = tuple(a - b for a, b in zip(counts(k1), before))
+        out["steps"].append({"loss": loss.item(), "launches": got})
+        print(f"train RDUNet(128) flax f32 step {i}: loss {loss.item():.6f}, (launches, tc, "
+              f"wide) {got}", flush=True)
+        if not math.isfinite(loss.item()) or got != want:
+            fail(f"RDUNet(128) step {i}: loss {loss.item()}, (launches, tc, wide) {got}, want "
+                 f"{want}")
+    out["launches"] = dict(zip(("all", "tc", "wide"), counts(k1)))
+    moved = sum(int(not torch.equal(v.detach().cpu(), init[k]))
+                for k, v in state.params.items())
+    finite = all(bool(torch.isfinite(v).all()) for v in state.params.values())
+    out["params_moved"] = f"{moved} of {len(state.params)}"
+    print(f"RDUNet(128) after {TRAIN_STEPS} steps: {out['params_moved']} tensors moved, "
+          f"finite {finite}", flush=True)
+    if moved == 0 or not finite:
+        fail(f"RDUNet(128) steps: {moved} tensors moved, finite {finite}")
+    out["step_ms"] = cuda_ms(torch, lambda: trainer.train_step(state, *batches[0]), 3)
+    print(f"train step RDUNet(128) {SUPERVISED128_BATCH}x256x256 acc {acc} flax f32: "
+          f"{out['step_ms']:.2f} ms", flush=True)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    after, losses = {}, {}
+    for engine in ("flax", "xla"):
+        trainer, state = make(engine)
+        opt = torch.optim.SGD(list(state.params.values()), lr=1e-2)
+        sgd = TrainState(state.params, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0),
+                         clip_norm=1.0)
+        _, loss = make_supervised_train_step(trainer.forward_fn, acc)(
+            sgd, *(trainer.put(t) for t in batches[0]))
+        losses[engine] = loss.item()
+        after[engine] = {k: v.detach() for k, v in state.params.items()}
+        del trainer, state, sgd, opt
+    worst = max(((v - after["flax"][k]).abs() / (STEP_ATOL + STEP_RTOL * v.abs())).max().item()
+                for k, v in after["xla"].items())
+    out["sgd_vs_xla"] = {"losses": losses, "worst_over_tol": worst}
+    print(f"RDUNet(128) SGD step, flax vs xla: loss {losses['flax']:.7f} vs {losses['xla']:.7f}; "
+          f"params worst |diff| / (atol {STEP_ATOL} + rtol {STEP_RTOL}*|p|) = {worst:.3f} "
+          "(must be <= 1)", flush=True)
+    if abs(losses["flax"] - losses["xla"]) > LOSS_RTOL * abs(losses["xla"]) or worst > 1:
+        fail("the RDUNet(128) step through the kernel disagrees with the xla step")
+    del after
+    torch.cuda.empty_cache()
+    return out
+
+
+class TimedLoader:
+    """Batches that record a CUDA event as each is handed out and once after
+    the last: the card's time of each round of the loop that consumes them."""
+
+    def __init__(self, torch, batches):
+        self.torch, self.batches, self.events = torch, batches, []
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        self.events = []
+        for batch in self.batches:
+            self.events.append(self.torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+            yield batch
+        self.events.append(self.torch.cuda.Event(enable_timing=True))
+        self.events[-1].record()
+
+    def round_ms(self):
+        self.events[-1].synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def gan_pairs(torch, device, n, shape, seed):
+    """``n`` (degraded, gt) grayscale pairs: smooth fields in [-1, 1] (cells
+    of 16 pixels, bilinear) plus Gaussian noise at sigma 25."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pairs = []
+    for _ in range(n):
+        b, c, h, w = shape
+        coarse = torch.rand(b, c, h // 16, w // 16, generator=gen, device=device) * 2 - 1
+        gt = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+        pairs.append((gt + SIGMA * torch.randn(gt.shape, generator=gen, device=device), gt))
+    return pairs
+
+
+def make_gan(kind, device, side, checkpoint_dir, seed=0):
+    """(trainer, state) of one GAN of the family, critic built for ``side``."""
+    from vub_image_denoising_tpu_torch.train.denoising_gan import DenoisingGANTrainer
+    from vub_image_denoising_tpu_torch.train.gan import RCAGANTrainer, rca_gan_diffusion_trainer
+
+    if kind == "rca_gan":
+        trainer = RCAGANTrainer(disc_input_hw=side, checkpoint_dir=checkpoint_dir, device=device,
+                                seed=seed)
+        return trainer, trainer.init(steps_per_epoch=GAN_ROUNDS)
+    if kind == "attention_gan":
+        trainer = DenoisingGANTrainer(checkpoint_dir=checkpoint_dir, device=device, seed=seed)
+        return trainer, trainer.init(steps_per_epoch=GAN_ROUNDS)
+    return rca_gan_diffusion_trainer(GAN_ROUNDS, side, checkpoint_dir=checkpoint_dir,
+                                     device=device, seed=seed)
+
+
+def state_tensors(torch, state):
+    """Every tensor of a GAN state: both nets' state_dicts and both
+    optimizers' per-parameter state."""
+    out = {}
+    for name in ("generator", "discriminator"):
+        out.update({f"{name}.{k}": v for k, v in getattr(state, name).state_dict().items()})
+    for name in ("g_opt", "d_opt"):
+        for i, st in getattr(state, name).state_dict()["state"].items():
+            out.update({f"{name}.{i}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+    return out
+
+
+def gan_train_run(torch, device, kind, tmp):
+    """One GAN at full width: GAN_ROUNDS rounds (D step + G step) of its
+    trainer's ``fit`` on 256^2 pairs, batch 8, one epoch, a checkpoint
+    written and read back into a fresh state equal; finite losses, params
+    that move; ms per round (CUDA events)."""
+    ck = os.path.join(tmp, kind)
+    trainer, state = make_gan(kind, device, GAN_SIDE, ck)
+    before = {f"{n}.{k}": v.detach().clone()
+              for n in ("generator", "discriminator")
+              for k, v in getattr(state, n).named_parameters()}
+    loader = TimedLoader(torch, gan_pairs(torch, device, GAN_ROUNDS,
+                                          (GAN_BATCH, 1, GAN_SIDE, GAN_SIDE), 5))
+    val = gan_pairs(torch, device, 1, (GAN_BATCH, 1, GAN_SIDE, GAN_SIDE), 6)
+    t0 = time.perf_counter()
+    state, history = trainer.fit(state, loader, val, num_epochs=1, checkpoint_every=1)
+    rounds = loader.round_ms()
+    sec = time.perf_counter() - t0
+    losses = {k: v for k, v in history[0].items() if k.endswith("loss")}
+    after = {f"{n}.{k}": v.detach() for n in ("generator", "discriminator")
+             for k, v in getattr(state, n).named_parameters()}
+    moved = {n: sum(int(not torch.equal(v, before[k])) for k, v in after.items()
+                    if k.startswith(n)) for n in ("generator", "discriminator")}
+    finite = all(bool(torch.isfinite(v).all()) for v in after.values())
+    del before
+    fresh_trainer, fresh = make_gan(kind, device, GAN_SIDE, ck, seed=1)
+    if kind == "attention_gan":
+        for name, module in (("generator", fresh.generator),
+                             ("discriminator", fresh.discriminator)):
+            module.load_state_dict(torch.load(os.path.join(
+                ck, f"{fresh_trainer.checkpoint_prefix}_{name}_1.pth"), weights_only=True),
+                strict=True)
+        want = {k: v for k, v in state_tensors(torch, state).items()
+                if k.startswith(("generator.", "discriminator."))}
+    else:
+        epoch = fresh_trainer.load_checkpoint(fresh, os.path.join(ck, "checkpoint_epoch_1.pth"))
+        if epoch != 1:
+            fail(f"{kind}: the checkpoint says epoch {epoch}, want 1")
+        want = state_tensors(torch, state)
+    got = state_tensors(torch, fresh)
+    equal = set(want) <= set(got) and all(torch.equal(got[k].to(v.device), v)
+                                          for k, v in want.items())
+    files = sorted(os.listdir(ck))
+    del fresh, fresh_trainer, got, want
+    out = {"losses": losses, "round_ms": rounds, "fit_sec": sec, "params_moved": moved,
+           "checkpoint_files": files, "checkpoint_equal": equal}
+    print(f"gan {kind} {GAN_BATCH}x1x{GAN_SIDE}x{GAN_SIDE}: {GAN_ROUNDS} rounds, ms per round "
+          f"{', '.join(f'{r:.1f}' for r in rounds)}; losses {losses}; params moved {moved}; "
+          f"checkpoint {files} read back equal: {equal}; fit {sec:.1f} s", flush=True)
+    if not all(math.isfinite(v) for v in losses.values()) or not finite:
+        fail(f"gan {kind}: losses {losses}, params finite {finite}")
+    if not all(moved.values()) or not equal:
+        fail(f"gan {kind}: params moved {moved}, checkpoint read back equal {equal}")
+    del trainer, state, loader, val
+    torch.cuda.empty_cache()
+    return out
+
+
+def gan_round(torch, kind, device, dtype, weights, batch, draws, tmp):
+    """One D step and one G step of ``kind`` on ``device`` in ``dtype`` from
+    ``weights`` (G, D and VGG state_dicts) and the given draws, the
+    optimizers at lr 0: (D loss, G loss, D's clipped grads, G's), on the CPU
+    in f64."""
+    trainer, state = make_gan(kind, device, GAN_CHECK_SHAPE[-1], tmp)
+    for module, sd in zip((state.generator, state.discriminator, trainer.vgg), weights):
+        module.load_state_dict(sd)
+        module.to(dtype)
+    for net, opt, sched in (("generator", "g_opt", "g_sched"),
+                            ("discriminator", "d_opt", "d_sched")):
+        o = torch.optim.SGD(getattr(state, net).parameters(), lr=0.0)
+        setattr(state, opt, o)
+        setattr(state, sched, torch.optim.lr_scheduler.LambdaLR(o, lambda k: 1.0))
+    x, y = (t.to(device, dtype) for t in batch)
+    eps_d, eps_g, t, noise = (v.to(device, dtype if v.is_floating_point() else v.dtype)
+                              for v in draws)
+    if kind == "attention_gan":
+        d_loss = trainer.d_step(state, x, y, alpha=eps_d)
+        d_grads = {k: p.grad.double().cpu() for k, p in state.discriminator.named_parameters()}
+        g_loss = trainer.g_step(state, x, y)[0]
+    else:
+        g_draws = (t, noise) if kind == "hybrid" else None
+        d_loss = trainer.d_step(state, x, y, eps=eps_d, g_draws=g_draws)
+        d_grads = {k: p.grad.double().cpu() for k, p in state.discriminator.named_parameters()}
+        g_loss = trainer.g_step(state, x, y, eps=eps_g, g_draws=g_draws)[0]
+    g_grads = {k: p.grad.double().cpu() for k, p in state.generator.named_parameters()}
+    return d_loss.item(), g_loss.item(), d_grads, g_grads
+
+
+def round_errors(a, b):
+    """Of two rounds (``gan_round``), b the reference: the losses' relative
+    errors and, for each net, the worst |grad diff| / (GAN_RTOL*|g| +
+    GAN_ATOL_OF_MAX * max|g|) (``grads_over_tol``), the worst leaf's max
+    |grad diff| / (GAN_F32_GRAD_OF_LEAF * its max|g| + GAN_F32_GRAD_FLOOR *
+    max|g|) (``grads_f32_excess``; each <= 1 holds), and max |grad diff| /
+    max|g|."""
+    out = {"d_loss_rel": abs(a[0] - b[0]) / abs(b[0]), "g_loss_rel": abs(a[1] - b[1]) / abs(b[1])}
+    for net, i in (("d", 2), ("g", 3)):
+        gmax = max(g.abs().max().item() for g in b[i].values())
+        out[f"{net}_grads_over_tol"] = max(
+            ((a[i][k] - g).abs() / (GAN_RTOL * g.abs() + GAN_ATOL_OF_MAX * gmax)).max().item()
+            for k, g in b[i].items())
+        out[f"{net}_grads_f32_excess"] = max(
+            (a[i][k] - g).abs().max().item()
+            / (GAN_F32_GRAD_OF_LEAF * g.abs().max().item() + GAN_F32_GRAD_FLOOR * gmax)
+            for k, g in b[i].items())
+        out[f"{net}_grads_of_max"] = max((a[i][k] - g).abs().max().item()
+                                         for k, g in b[i].items()) / gmax
+    return out
+
+
+def f32_round_held(e):
+    """An f32 round's ``round_errors`` against the f64 round within the
+    GAN_F32_* limits."""
+    return (max(e["d_loss_rel"], e["g_loss_rel"]) <= GAN_F32_LOSS_RTOL
+            and max(e["d_grads_f32_excess"], e["g_grads_f32_excess"]) <= 1)
+
+
+def gan_card_vs_cpu(torch, device, kind, tmp):
+    """One round of ``kind`` at GAN_CHECK_SHAPE on the card against the same
+    round on the CPU, from the same weights and draws, TF32 off and cuDNN
+    deterministic: in f64, losses to GAN_RTOL and clipped gradients to
+    GAN_RTOL / GAN_ATOL_OF_MAX * max|g|.  The critic's batch-2 BatchNorm and
+    the penalty's second derivatives make a round's f32 rounding alone move
+    gradients by up to a few percent of max|g| on either device, so the f32
+    rounds, the card's (the program trained above) and the CPU's, are each
+    held to the CPU's f64 round within the GAN_F32_* limits instead."""
+    trainer, state = make_gan(kind, "cpu", GAN_CHECK_SHAPE[-1], tmp)
+    weights = tuple({k: v.clone() for k, v in m.state_dict().items()}
+                    for m in (state.generator, state.discriminator, trainer.vgg))
+    del trainer, state
+    gen = torch.Generator().manual_seed(7)
+    batch = gan_pairs(torch, "cpu", 1, GAN_CHECK_SHAPE, 8)[0]
+    n, _, h, w = GAN_CHECK_SHAPE
+    draws = (torch.rand(n, 1, 1, 1, generator=gen), torch.rand(n, 1, 1, 1, generator=gen),
+             torch.randint(0, 1000, (n,), generator=gen),
+             torch.randn(n, 64, h, w, generator=gen))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rounds = {(dev, str(dt).split(".")[-1]): gan_round(torch, kind, dev, dt, weights, batch,
+                                                           draws, tmp)
+                  for dev in ("cpu", device) for dt in (torch.float64, torch.float32)}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    cpu64, card64 = rounds[("cpu", "float64")], rounds[(device, "float64")]
+    out = {"f64_card_vs_cpu": round_errors(card64, cpu64),
+           "f32_card_vs_cpu": round_errors(rounds[(device, "float32")], rounds[("cpu", "float32")]),
+           "f32_card_vs_f64": round_errors(rounds[(device, "float32")], cpu64),
+           "f32_cpu_vs_f64": round_errors(rounds[("cpu", "float32")], cpu64)}
+    e = out["f64_card_vs_cpu"]
+    print(f"gan {kind} one round {GAN_CHECK_SHAPE}, card vs CPU: f64 {e} (losses <= {GAN_RTOL}, "
+          f"grads_over_tol <= 1); f32 card vs CPU {out['f32_card_vs_cpu']}; f32 card vs f64 "
+          f"{out['f32_card_vs_f64']}; f32 CPU vs f64 {out['f32_cpu_vs_f64']} (f32 vs f64: "
+          f"losses <= {GAN_F32_LOSS_RTOL}, grads_f32_excess <= 1)", flush=True)
+    if not (e["d_loss_rel"] <= GAN_RTOL and e["g_loss_rel"] <= GAN_RTOL
+            and e["d_grads_over_tol"] <= 1 and e["g_grads_over_tol"] <= 1):
+        fail(f"gan {kind}: the round on the card disagrees with the CPU's in f64: {e}")
+    for name in ("f32_card_vs_f64", "f32_cpu_vs_f64"):
+        if not f32_round_held(out[name]):
+            fail(f"gan {kind}: {name} beyond the f32 limits: {out[name]}")
+    return out
+
+
+def gan_main_path(torch, device):
+    """Phase 15: the RCA-GAN, the attention-U-Net GAN and the diffusion-GAN
+    hybrid trained on the card (``gan_train_run``) and one round of each
+    held to the CPU's (``gan_card_vs_cpu``)."""
+    out = {}
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("rca_gan", "attention_gan", "hybrid"):
+            out[kind] = gan_train_run(torch, device, kind, tmp)
+            out[kind]["card_vs_cpu"] = gan_card_vs_cpu(torch, device, kind, tmp)
+            shutil.rmtree(os.path.join(tmp, kind), ignore_errors=True)
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"gan phase: {out['phase_sec']:.1f} s", flush=True)
     return out
 
 
@@ -1699,6 +2177,16 @@ def main():
     evaluation = eval_main_path(torch, card, sampler)
     eval_launches = {k: {"all": evaluation["launches"][k], "tc": evaluation["tc_launches"][k]}
                      for k in evaluation["launches"]}
+    phase_t0 = time.perf_counter()
+    wide_records, wide_packed_records = check_wide_kernel(torch, device)
+    rdunet128 = rdunet128_main_path(torch, device)
+    rdunet128["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"wide phase: {rdunet128['phase_sec']:.1f} s", flush=True)
+    phase_t0 = time.perf_counter()
+    supervised128 = supervised128_main_path(torch, device)
+    supervised128["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"RDUNet(128) train phase: {supervised128['phase_sec']:.1f} s", flush=True)
+    gans = gan_main_path(torch, device)
 
     def per_forward(recs, shapes, dtype):
         return [(r, cnt) for r in recs for s, cnt in shapes
@@ -1772,7 +2260,9 @@ def main():
             "launches": (serve_launches["tc"] + train_launches["tc"]
                          + diffusion_serve_launches["tc"] + diffusion_train_launches["tc"]
                          + sum(folder_launches.values())
-                         + sum(evaluation["tc_launches"].values())),
+                         + sum(evaluation["tc_launches"].values())
+                         + sum(v["tc"] for v in rdunet128["launches"].values())
+                         + supervised128["launches"]["tc"]),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -1784,6 +2274,8 @@ def main():
                                  "diffusion_train": diffusion_train_launches,
                                  "diffusion_fit": folder_launches,
                                  "eval": eval_launches,
+                                 "rdunet128": rdunet128["launches"],
+                                 "supervised128": supervised128["launches"],
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
             "train_step_ms": step_ms,
@@ -1795,7 +2287,14 @@ def main():
             "diffusion_validate": validation,
             "folder_train": folder,
             "sidd_eval": evaluation,
-            "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc")},
+            "wide": {"variant": "tc_wide", "widths": "c > 256 (512, 1024)",
+                     "source": CSRC + "fused_block_wide_tc.cu", "per_shape": wide_records,
+                     "ptxas": ptxas["fused_block_wide_tc"]},
+            "rdunet128": rdunet128,
+            "supervised128": supervised128,
+            "gan": gans,
+            "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc",
+                                                  "fused_block_wide_tc")},
             "card": card,
         },
         {
@@ -1813,6 +2312,8 @@ def main():
                                                     "cuda_core_ms", "cuda_core_max_abs_err")),
             "launches_by_path": {"trainable_block": trainable["fused_denoising_block_packed"]},
             "trainable_max_grad_err": trainable["max_grad_err"],
+            "wide": {"variant": "tc_wide", "source": CSRC + "fused_block_wide_tc.cu",
+                     "per_shape": wide_packed_records},
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block_packed", "fused_block_packed_tc")},
             "card": card,
         },

@@ -253,12 +253,12 @@ def test_cuda_tc_kernel_border_padding(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 1), ("float32", 16, 0),
-                                         ("bfloat16", 16, 0), ("bfloat16", 512, 0),
-                                         ("bfloat16", 1024, 0), ("bfloat16", 64, 1)])
+                                         ("bfloat16", 16, 0), ("bfloat16", 512, 1),
+                                         ("bfloat16", 1024, 1), ("bfloat16", 64, 1)])
 def test_cuda_variant_counters(cuda, dtype, c, tc):
-    """f32 and bf16 at c in TC_WIDTHS count as a tensor-core launch; at
-    other widths they launch the CUDA-core kernel.  Each output is held
-    against the plain version."""
+    """f32 and bf16 at c in TC_WIDTHS, and at c = 512 and 1024 (the wide
+    form), count as a tensor-core launch; at other widths they launch the
+    CUDA-core kernel.  Each output is held against the plain version."""
     params = _block(c, cuda)
     x = torch.randn(1, c, 10, 12, device=cuda).to(getattr(torch, dtype)).contiguous(
         memory_format=torch.channels_last)
@@ -296,16 +296,87 @@ def test_cuda_core_kernel_f32_at_tc_widths(cuda, shape):
 
 @pytest.mark.parametrize("shape", [(1, 512, 64, 64), (1, 1024, 32, 32)])
 def test_cuda_core_kernel_bf16_at_rdunet128_widths(cuda, shape):
-    """The wrapper in bf16 at the shapes of RDUNet(128)'s deepest blocks on a
-    256x256 image (utils.info.print_info): the CUDA-core kernel, held
-    against the plain block in f32."""
+    """The CUDA-core kernel's bf16 build, forced at the shapes of RDUNet(128)'s
+    deepest blocks on a 256x256 image, where the wrapper now launches the
+    wide form: held against the plain block in f32."""
+    _cuda_core_at_tc_width(shape, cuda, "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# The wide form (csrc/fused_block_wide_tc.cu) at c > 256: four launches of
+# one tensor-core conv with o0..o2 in a device workspace, for kernel 1 and,
+# with the packed pixel address, kernel 2.  The same tolerances; unpacked,
+# kernel 2's output equals kernel 1's bit for bit.
+# ---------------------------------------------------------------------------
+
+WIDE_SHAPES = [(1, 512, 64, 64), (1, 1024, 32, 32), (4, 512, 64, 64), (2, 512, 20, 36)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_cuda_wide_kernel_matches_plain(cuda, shape, dtype):
+    """RDUNet(128)'s c = 512 and 1024 blocks on a 256x256 image, batch 4, and
+    a ragged image (neither side a multiple of the 8 x 16 tile): one block,
+    counted once as a tensor-core launch and a wide one."""
     params = _block(shape[1], cuda)
-    x = _input(shape, cuda, "bfloat16")
-    tc_before = fb.fused_denoising_block.tc_launches
-    y = fb.fused_denoising_block(x, params)
+    x = _input(shape, cuda, dtype)
+    counter = fb.fused_denoising_block
+    before = (counter.launches, counter.tc_launches, counter.wide_launches)
+    y = counter(x, params)
     torch.cuda.synchronize()
-    assert fb.fused_denoising_block.tc_launches == tc_before
+    assert (counter.launches, counter.tc_launches, counter.wide_launches) == tuple(
+        v + 1 for v in before)
     _check(y, x, params)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 512, 64, 64), (2, 1024, 20, 36)])
+def test_cuda_packed_wide_kernel_matches_kernel_1(cuda, shape, dtype):
+    params, pq, x, xq = _packed_case(shape, cuda, dtype)
+    counter = fb.fused_denoising_block_packed
+    before = (counter.launches, counter.tc_launches, counter.wide_launches)
+    yq = counter(xq, pq)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.tc_launches, counter.wide_launches) == tuple(
+        v + 1 for v in before)
+    _check_packed(yq, xq, pq)
+    assert torch.equal(unpack2x2(yq), fb.fused_denoising_block(x, params))
+
+
+def test_cuda_wide_kernel_rejects_what_it_does_not_take(cuda):
+    """An odd side in the packed layout, a shared-memory size that is not the
+    kernel's, a width that is no multiple of two channel chunks (c = 320)
+    and an inner width that is not c / 2: the launch fails and the wrapper
+    raises."""
+    params = _block(512, cuda)
+    x = _input((1, 512, 7, 8), cuda, "float32")
+    kw = fb.pack_block_params(params, x.dtype, cuda)
+    smem = fb.wide_smem_bytes(4)
+    for args in ((1, 7, 8, 512, 256, smem, True), (1, 7, 8, 512, 256, smem - 16, False),
+                 (1, 7, 8, 320, 160, smem, False), (1, 7, 8, 512, 192, smem, False)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fb._launch_wide("fused_denoising_block", x, kw, *args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rdunet128_forward(cuda, dtype):
+    """RDUNet(128) on the card, 14 blocks all on the tensor cores (4 through
+    the wide form at 64x64 input: c = 512 and 1024), against the CPU forward
+    (f32 to 2e-4, TF32 off; bf16 to 5e-2 of max|y|)."""
+    model = RDUNet(3, 128, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.rand(1, 3, 64, 64, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    with torch.no_grad():
+        want = model(x)
+        gpu = model.to(cuda).to(memory_format=torch.channels_last)
+        xd = x.to(cuda).to(getattr(torch, dtype)).contiguous(memory_format=torch.channels_last)
+        counter = fb.fused_denoising_block
+        counter.launches = counter.tc_launches = counter.wide_launches = 0
+        y = gpu(xd).float().cpu()
+    assert (counter.launches, counter.tc_launches, counter.wide_launches) == (14, 14, 6)
+    if dtype == "float32":
+        torch.testing.assert_close(y, want, atol=2e-4, rtol=0)
+    else:
+        assert (y - want).abs().max().item() <= 5e-2 * want.abs().max().item()
 
 
 # ---------------------------------------------------------------------------
@@ -385,11 +456,11 @@ def test_cuda_packed_tc_kernel_border_padding(cuda, dtype):
 
 @pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 1), ("bfloat16", 64, 1),
                                          ("float32", 16, 0), ("bfloat16", 16, 0),
-                                         ("float32", 512, 0), ("bfloat16", 512, 0)])
+                                         ("float32", 512, 1), ("bfloat16", 512, 1)])
 def test_cuda_packed_variant_counters(cuda, dtype, c, tc):
-    """Kernel 2 at c in TC_WIDTHS counts as a tensor-core launch; at c = 16
-    and 512 it launches fused_block_packed.cu on the CUDA cores.  Each
-    output is held against the plain version."""
+    """Kernel 2 at c in TC_WIDTHS, and at c = 512 (the wide form), counts as
+    a tensor-core launch; at c = 16 it launches fused_block_packed.cu on the
+    CUDA cores.  Each output is held against the plain version."""
     _, pq, _, xq = _packed_case((1, c, 10, 12), cuda, dtype)
     counter = fb.fused_denoising_block_packed
     before, tc_before = counter.launches, counter.tc_launches

@@ -103,6 +103,52 @@ def test_tile_fits_shared_memory(c, itemsize):
     assert fb.smem_bytes(c // 2, th, tw, itemsize) <= 232448
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,want", [(512, "tc_wide"), (1024, "tc_wide"), (16, "cuda_core"),
+                                    (48, "cuda_core"), (256, "tc")])
+def test_wide_variant_rule(dtype, c, want):
+    """c > 256 (RDUNet-64's and RDUNet-128's 512 and 1024) takes the wide
+    form in both dtypes, its tile and shared memory; c = 16 and 48 stay on
+    the CUDA cores; kernel 2 takes kernel 1's variant at the unpacked shape."""
+    assert fb.block_variant(dtype, c) == want
+    got = fb.block_tile(dtype, 2, c, 20, 36, 132)
+    assert got[0] == want
+    assert fb.packed_block_tile(dtype, 2, 4 * c, 10, 18, 132) == got
+    if want == "tc_wide":
+        assert got[1:] == (*fb.WIDE_TILE, fb.wide_smem_bytes(dtype.itemsize))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_wide_smem_fits_and_mirrors_the_source(itemsize):
+    """The wide form's shared memory is one size at every width, fits two
+    thread blocks on an SM (2 x (bytes + 1 KB reserved) <= 228 KB), and is
+    what csrc/fused_block_wide_tc.cu's kWideSmem computes."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fb.__file__).resolve().parent.parent / "csrc"
+           / "fused_block_wide_tc.cu").read_text()
+    th, tw = (int(v) for v in re.search(
+        r"kWideTH = (\d+), kWideTW = (\d+);", src).groups())
+    n = int(re.search(r"kWideN = (\d+);", src).group(1))
+    assert (th, tw) == fb.WIDE_TILE and n == fb.WIDE_N
+    x_bytes = (th + 2) * (tw + 2) * 80
+    w_bytes = 9 * 64 * (n + 8)  # nine taps x (64 / e) rows x (n + 8) columns of e bytes
+    assert fb.wide_smem_bytes(itemsize) == 2 * (x_bytes + w_bytes) == 111744
+    assert 2 * (fb.wide_smem_bytes(itemsize) + 1024) <= 233472
+    for c in (512, 1024, 2048):
+        assert fb.block_tile(torch.float32 if itemsize == 4 else torch.bfloat16,
+                             1, c, 64, 64, 132)[3] <= 232448
+
+
+def test_wide_workspace_formula():
+    """o0..o2 of every pixel, NHWC: 3 * inner channels; (8, 512, 64, 64) f32
+    is 8 * 4096 * 768 * 4 bytes = 100.7 MB."""
+    assert fb.wide_workspace_shape(8, 512, 64, 64) == (8, 64, 64, 768)
+    assert fb.wide_workspace_shape(1, 1024, 32, 32) == (1, 32, 32, 1536)
+    assert np.prod(fb.wide_workspace_shape(8, 512, 64, 64)) * 4 == 100_663_296
+
+
 def test_block_flops_formula():
     assert fb.block_flops(1, 32, 256, 256) == 85.5 * 32 * 32 * 256 * 256
 

@@ -125,7 +125,7 @@ def test_packed_tile_is_kernel_1s_at_the_unpacked_shape(shape):
             assert got[0] == "tc"
 
 
-@pytest.mark.parametrize("c", [16, 512])
+@pytest.mark.parametrize("c", [16, 48])
 def test_packed_tile_outside_tc_widths_stays_on_the_cuda_cores(c):
     for dtype in (torch.bfloat16, torch.float32):
         variant, th, tw, smem = fb.packed_block_tile(dtype, 1, 4 * c, 5, 6, H100_SMS)
@@ -137,9 +137,9 @@ def test_packed_tile_outside_tc_widths_stays_on_the_cuda_cores(c):
 @pytest.mark.parametrize("dtype,c,want", [
     (torch.bfloat16, 32, "tc"), (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "cuda_core"),
-    (torch.bfloat16, 512, "cuda_core"), (torch.float32, 32, "tc"),
+    (torch.bfloat16, 512, "tc_wide"), (torch.float32, 32, "tc"),
     (torch.float32, 256, "tc"), (torch.float32, 16, "cuda_core"),
-    (torch.float32, 512, "cuda_core"),
+    (torch.float32, 512, "tc_wide"),
 ])
 def test_block_variant_rule(dtype, c, want):
     assert fb.block_variant(dtype, c) == want

@@ -112,6 +112,13 @@ def test_model_summary_and_latency():
     assert m["mfu"] == m["flops"] / m["avg_inference_sec"] / info.H100_BF16_PEAK_FLOPS
 
 
+def test_print_info_takes_f32_alone_on_the_cpu():
+    """Other activations than f32 are for the card: on the CPU print_info
+    refuses them before it builds a model."""
+    with pytest.raises(ValueError, match="f32 only"):
+        info.print_info(device="cpu", dtype=torch.bfloat16)
+
+
 def test_sampler_flops_are_t_forwards_of_the_stack():
     """The sampler's count: T forwards of RDUNetT on the 2N stack; the
     elementwise sampler update adds none."""

@@ -23,14 +23,22 @@ Two kernels compute it; the choice between them is static (``block_variant``):
   error-compensated TF32 (3xTF32: each operand split into two TF32 values,
   three products per pair), which keeps exact-f32 accuracy, where one TF32
   product would not;
-- f32 and bf16 at any other width (c = 16, 512, 1024, ...) launch
+- f32 and bf16 at c > 256 with c a multiple of 2 * ``WIDE_N`` (512, 1024:
+  every RDUNet-64 and RDUNet-128 width above 256) launch the wide form,
+  ``csrc/fused_block_wide_tc.cu``: the same tensor-core arithmetic as four
+  launches of one implicit-GEMM conv (an 8 x 16 pixel tile by a chunk of
+  ``WIDE_N`` output channels, K streamed in slabs), with o0..o2 in a device
+  workspace (``wide_workspace_shape``) instead of shared memory, so its
+  shared memory (``wide_smem_bytes``) does not grow with c.  Counted as a
+  tensor-core launch, and in ``.wide_launches``;
+- f32 and bf16 at any other width (c = 16, 48, ...) launch
   ``csrc/fused_block.cu`` on the CUDA cores, tile ``pick_tile``.
 
 The rule has no option and no fallback: a dtype and width decide the kernel.
 
-Both give each thread block one (image, th x tw output tile) and keep o0..o2
-in shared memory over a halo pyramid of th+6 -> th+4 -> th+2 -> th rows;
-o0..o2 never reach device memory.  A build or launch error raises; nothing
+The first two and the CUDA-core kernel give each thread block one (image,
+th x tw output tile) and keep o0..o2 in shared memory over a halo pyramid of
+th+6 -> th+4 -> th+2 -> th rows; o0..o2 never reach device memory.  A build or launch error raises; nothing
 falls back.  Bound on an H100 SXM: 85.5*c^2*H*W*N FLOP per launch
 (5.74 GFLOP per 256^2 image per block at c = 32; at batch 8 about 46 us at the
 989 TFLOP/s bf16 dense peak, or 278 us for f32's three TF32 products at the
@@ -144,20 +152,48 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# The wide form (csrc/fused_block_wide_tc.cu): an (8 x 16)-pixel tile by
+# WIDE_N output channels per thread block; its shared memory holds two
+# buffers of (one 64-byte channel slab over the (8+2) x (16+2) halo region,
+# rows padded to 80 bytes) and (the nine taps of that slab's 64 / e weight
+# rows, WIDE_N + 8 columns of e bytes).
+WIDE_TILE = (8, 16)
+WIDE_N = 64
+
+
+def wide_smem_bytes(itemsize: int) -> int:
+    """Shared memory of the wide form for elements of ``itemsize`` bytes;
+    mirrors ``kWideSmem`` in ``csrc/fused_block_wide_tc.cu``."""
+    th, tw = WIDE_TILE
+    return 2 * ((th + 2) * (tw + 2) * 80 + 9 * (64 // itemsize) * (WIDE_N + 8) * itemsize)
+
+
+def wide_workspace_shape(n: int, c: int, h: int, w: int):
+    """The wide form's workspace for an (n, c, h, w) image: o0..o2, NHWC."""
+    return (n, h, w, 3 * (c // 2))
+
+
 def block_variant(dtype, c: int) -> str:
     """Which kernel a CUDA input of this dtype and width launches: ``"tc"``
-    (tensor cores: f32 or bf16 at c in TC_WIDTHS) or ``"cuda_core"`` (f32
-    or bf16 at any other width)."""
-    return ("tc" if dtype in (torch.float32, torch.bfloat16) and c in TC_WIDTHS
-            else "cuda_core")
+    (tensor cores: f32 or bf16 at c in TC_WIDTHS), ``"tc_wide"`` (the wide
+    form on the tensor cores: f32 or bf16 at c > 256, c a multiple of
+    2 * WIDE_N) or ``"cuda_core"`` (f32 or bf16 at any other width)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return "cuda_core"
+    if c in TC_WIDTHS:
+        return "tc"
+    return "tc_wide" if c > 256 and c % (2 * WIDE_N) == 0 else "cuda_core"
 
 
 def block_tile(dtype, n: int, c: int, h: int, w: int, sms: int):
     """(variant, th, tw, shared-memory bytes) of a launch at this input on a
     card with ``sms`` SMs."""
-    if block_variant(dtype, c) == "tc":
+    variant = block_variant(dtype, c)
+    if variant == "tc":
         th, tw = pick_tile_tc(n, c, h, w, sms, dtype.itemsize)
         return "tc", th, tw, tc_smem_bytes(c, th, tw, dtype.itemsize)
+    if variant == "tc_wide":
+        return ("tc_wide", *WIDE_TILE, wide_smem_bytes(dtype.itemsize))
     th, tw = pick_tile(c // 2, dtype.itemsize)
     return "cuda_core", th, tw, smem_bytes(c // 2, th, tw, dtype.itemsize)
 
@@ -232,6 +268,19 @@ def _packed_tc_library():
     return lib
 
 
+def _wide_library():
+    lib = load_library("fused_block_wide_tc", "fused_block_wide_tc.cu",
+                       ("fused_block.cuh", "fused_block_tc.cuh"))
+    fn = lib.fused_block_wide_tc_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.fused_block_wide_tc_error_string.argtypes = [ctypes.c_int]
+        lib.fused_block_wide_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _declare(lib, prefix):
     fn = getattr(lib, f"{prefix}_launch")
     if fn.argtypes is None:
@@ -292,6 +341,29 @@ def _launch(name, lib, prefix, x, weights, n, h, w, c, inner, tile=None):
     return y
 
 
+def _launch_wide(name, x, weights, n, h, w, c, inner, smem, packed_layout=False):
+    """Allocate y like x and the o0..o2 workspace from the caching allocator
+    (freed when this returns, once the stream's work is queued), and launch
+    the wide form's four levels over the (h x w) image on the current
+    stream; ``packed_layout``: x and y are 2x2 even-packed."""
+    wpk, ba = weights
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    if y.numel() == 0:
+        return y
+    ws = torch.empty(wide_workspace_shape(n, c, h, w), dtype=x.dtype, device=x.device)
+    lib = _wide_library()
+    with torch.cuda.device(x.device):
+        rc = lib.fused_block_wide_tc_launch(
+            x.data_ptr(), wpk.data_ptr(), ba.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            n, h, w, c, inner, int(x.dtype == torch.bfloat16), int(packed_layout), smem,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.fused_block_wide_tc_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
+    return y
+
+
 def fused_denoising_block(x, params, packed=None):
     """Apply one DenoisingBlock to ``x`` (N, C, H, W).
 
@@ -299,9 +371,11 @@ def fused_denoising_block(x, params, packed=None):
     it launches a kernel, by this static rule (``block_variant``): f32 or
     bf16 with c in ``TC_WIDTHS`` launches the tensor-core kernel
     (``csrc/fused_block_tc.cu``, 3xTF32 for f32; counted in
-    ``.tc_launches``); other widths the CUDA-core kernel
-    (``csrc/fused_block.cu``).  Every
-    launch counts in ``.launches``.  ``x`` must be f32 or bf16 in
+    ``.tc_launches``); c > 256 the wide form on the tensor cores
+    (``csrc/fused_block_wide_tc.cu``, four CUDA launches counted once, in
+    ``.tc_launches`` and ``.wide_launches``); other widths the CUDA-core
+    kernel (``csrc/fused_block.cu``).  Every block counts once in
+    ``.launches``.  ``x`` must be f32 or bf16 in
     channels_last memory; ``packed`` is ``pack_block_params(params, x.dtype,
     x.device)``, which callers cache (it is built here when omitted).  The
     kernels have no backward: call this under ``torch.no_grad()`` or
@@ -327,6 +401,10 @@ def fused_denoising_block(x, params, packed=None):
         y = _launch("fused_denoising_block", _tc_library(), "fused_block_tc", x, packed,
                     n, h, w, c, inner, (th, tw, smem))
         fused_denoising_block.tc_launches += 1
+    elif variant == "tc_wide":
+        y = _launch_wide("fused_denoising_block", x, packed, n, h, w, c, inner, smem)
+        fused_denoising_block.tc_launches += 1
+        fused_denoising_block.wide_launches += 1
     else:
         y = _launch("fused_denoising_block", _library(), "fused_block", x, packed,
                     n, h, w, c, inner, (th, tw, smem))
@@ -334,8 +412,9 @@ def fused_denoising_block(x, params, packed=None):
     return y
 
 
-fused_denoising_block.launches = 0  # kernel launches (both variants) since the last reset
-fused_denoising_block.tc_launches = 0  # of those, tensor-core launches
+fused_denoising_block.launches = 0  # blocks launched (every variant) since the last reset
+fused_denoising_block.tc_launches = 0  # of those, on the tensor cores (tc and tc_wide)
+fused_denoising_block.wide_launches = 0  # of those, the wide form
 
 
 # ---------------------------------------------------------------------------
@@ -453,9 +532,11 @@ def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
     (``packed_block_tile``): f32 or bf16 with c in ``TC_WIDTHS`` launches
     ``csrc/fused_block_packed_tc.cu``, kernel 1's tensor-core body with the
     packed pixel address, whose unpacked output equals kernel 1's bit for
-    bit (counted in ``.tc_launches``); other widths launch
-    ``csrc/fused_block_packed.cu`` on the CUDA cores.  Every launch counts in
-    ``.launches``.  ``kernel_weights`` is ``kernel_weights_from_packed(
+    bit (counted in ``.tc_launches``); c > 256 the wide form
+    ``csrc/fused_block_wide_tc.cu`` with the packed pixel address (in
+    ``.tc_launches`` and ``.wide_launches``); other widths launch
+    ``csrc/fused_block_packed.cu`` on the CUDA cores.  Every block counts
+    once in ``.launches``.  ``kernel_weights`` is ``kernel_weights_from_packed(
     packed_params, xq.dtype)``, which callers cache per parameter version (it
     is gathered here when omitted).  No backward, like kernel 1."""
     name = "fused_denoising_block_packed"
@@ -480,6 +561,11 @@ def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
         y = _launch(name, _packed_tc_library(), "fused_block_packed_tc", xq, kernel_weights,
                     n, 2 * hq, 2 * wq, c, inner, (th, tw, smem))
         fused_denoising_block_packed.tc_launches += 1
+    elif variant == "tc_wide":
+        y = _launch_wide(name, xq, kernel_weights, n, 2 * hq, 2 * wq, c, inner, smem,
+                         packed_layout=True)
+        fused_denoising_block_packed.tc_launches += 1
+        fused_denoising_block_packed.wide_launches += 1
     else:
         y = _launch(name, _packed_library(), "fused_block_packed", xq, kernel_weights,
                     n, 2 * hq, 2 * wq, c, inner, (th, tw, smem))
@@ -487,8 +573,9 @@ def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
     return y
 
 
-fused_denoising_block_packed.launches = 0  # kernel launches (both variants) since the last reset
-fused_denoising_block_packed.tc_launches = 0  # of those, tensor-core launches
+fused_denoising_block_packed.launches = 0  # blocks launched (every variant) since the last reset
+fused_denoising_block_packed.tc_launches = 0  # of those, on the tensor cores (tc and tc_wide)
+fused_denoising_block_packed.wide_launches = 0  # of those, the wide form
 
 
 def pad_block_params(params, cpad):

@@ -80,19 +80,25 @@ def diffusion_rdunet_direct(image_folder: str, num_epochs: int = 300,
     return _run_diffusion(trainer, train_loader, val_loader, num_epochs, checkpoint_path)
 
 
+def rdunet_supervised_trainer(model=None, engine: str = "flax", device=None):
+    """rdunet_supervised_main's trainer: RDUNet(128) (``model``, when given,
+    takes its place), f32, AdamW(1e-4, wd 1e-5), accumulation 4, a checkpoint
+    every 5 epochs.  Its blocks at c = 512 and 1024 run kernel 1's wide form."""
+    return SupervisedTrainer(
+        model if model is not None else RDUNet(channels=3, base_filters=128), lr=1e-4,
+        weight_decay=1e-5, accumulation_steps=4, checkpoint_every=5,
+        engine=engine, remat=False, compute_dtype=torch.float32, device=device,
+    )
+
+
 def rdunet_supervised_main(image_folder: str, num_epochs: int = 21,
                            batch_size: int = 4, device=None):
     """UNet/RDUNet_model.py __main__: RDUNet(128), DIV2K 10%, AdamW, 21 epochs.
 
     The JAX preset's ``fast`` option (a geometry tuned on a TPU) is not
-    ported.  RDUNet(128) has blocks at c up to 1024: the widths above 256
-    run the CUDA-core kernel.
+    ported.
     """
-    trainer = SupervisedTrainer(
-        RDUNet(channels=3, base_filters=128), lr=1e-4, weight_decay=1e-5,
-        accumulation_steps=4, checkpoint_every=5,
-        engine="flax", remat=False, compute_dtype=torch.float32, device=device,
-    )
+    trainer = rdunet_supervised_trainer(device=device)
     train_loader, val_loader = load_folder_data(
         image_folder, batch_size=batch_size, augment=False, dataset_percentage=0.1,
         use_rgb=True, device=device,

@@ -9,7 +9,16 @@ given as numpy arrays, across to the port:
 - conv weight: HWIO kernel -> OIHW (transpose (3, 2, 0, 1));
 - transpose conv (``conv_t``/``upconv*``): (kh, kw, ci, co) -> (ci, co, kh, kw);
 - dense kernel (in, out) -> (out, in);
-- PReLU ``alpha`` -> ``weight``; the JAX model's ``core`` level is dropped.
+- PReLU ``alpha`` -> ``weight``; the JAX model's ``core`` level is dropped;
+- BatchNorm (the GANs' ``TorchBatchNorm``, whose ``stats`` level is dropped):
+  ``scale``/``bias`` -> ``weight``/``bias``, and from ``batch_stats``
+  ``mean``/``var`` -> ``running_mean``/``running_var``, with
+  ``num_batches_tracked`` = 0;
+- LayerNorm (flax's ``nn.LayerNorm``): ``scale``/``bias`` -> ``weight``/``bias``;
+- spectral norm (flax's ``nn.SpectralNorm``, whose u sits in ``batch_stats``
+  as ``SpectralNorm_i/{layer}/kernel/u``, shape (1, cout)): -> the layer's
+  ``weight_u``, shape (cout,); flax's ``sigma`` is recomputed by every
+  forward and is not carried.
 """
 
 import os
@@ -56,13 +65,24 @@ def _flatten(tree, prefix=()):
 
 
 def params_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX param tree (numpy leaves; ``{'params': ...}`` or bare) -> state_dict."""
-    if "params" in tree:
-        tree = tree["params"]
+    """JAX variables (numpy leaves; ``{'params': ..., 'batch_stats'?: ...}``
+    or a bare param tree) -> state_dict."""
+    trees = [tree["params"], tree.get("batch_stats", {})] if "params" in tree else [tree]
     out = {}
-    for names, leaf in _flatten(tree):
-        key, arr = _torch_key_and_array(list(names), np.asarray(leaf))
-        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    for sub in trees:
+        for names, leaf in _flatten(sub):
+            names = list(names)
+            if names[0].startswith("SpectralNorm_"):
+                layer, *_, leafname = names[-1].split("/")
+                if leafname == "u":
+                    out[f"{layer}.weight_u"] = torch.from_numpy(
+                        np.array(leaf, dtype=np.float32).reshape(-1))
+                continue
+            key, arr = _torch_key_and_array(names, np.asarray(leaf))
+            out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+            if key.endswith("running_var"):
+                out[key[: -len("running_var")] + "num_batches_tracked"] = torch.zeros(
+                    (), dtype=torch.long)
     return out
 
 

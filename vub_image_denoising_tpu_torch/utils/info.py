@@ -108,17 +108,20 @@ def measure_inference_metrics(fn, *args, num_iterations: int = 10,
     return result
 
 
-def print_info(device=None) -> dict:
+def print_info(device=None, dtype=torch.float32) -> dict:
     """The reference info.py's ``__main__``: summarize RDUNet(128) and the
     diffusion model (the T = 20 sampler on RDUNetT(32)) on one 256x256
     image, and print their latency and peak memory.  Runs on the card
-    unless ``device="cpu"``; the weights are random, from seed 0.  On the
-    card RDUNet(128) runs with bf16 activations: kernel 1 has no f32 tile
-    for its c = 1024 blocks (``ops.fused_block.pick_tile``; ROADMAP §3).
-    Returns the four dicts it printed."""
+    unless ``device="cpu"``; the weights are random, from seed 0.
+    RDUNet(128) takes ``dtype`` activations on the card (f32 by default, as
+    in the JAX package; its c = 512 and 1024 blocks run kernel 1's wide
+    form); the sampler runs f32, and the CPU takes f32 alone.  Returns the
+    four dicts it printed."""
     from ..models.rdunet import RDUNet, RDUNetT
 
     device = resolve_device(device)
+    if device.type != "cuda" and dtype != torch.float32:
+        raise ValueError(f"print_info on {device.type} runs f32 only, not {dtype}")
 
     def place(model):
         model = model.to(device).eval()
@@ -127,7 +130,7 @@ def print_info(device=None) -> dict:
     x = torch.zeros(1, 3, 256, 256, device=device)
     if device.type == "cuda":
         x = x.contiguous(memory_format=torch.channels_last)
-    x128 = x.to(torch.bfloat16) if device.type == "cuda" else x
+    x128 = x.to(dtype)
     rdunet = place(RDUNet(3, 128, generator=torch.Generator().manual_seed(0)))
     sampler = place(DiffusionSampler(RDUNetT(32, generator=torch.Generator().manual_seed(0)), 20))
     out = {"rdunet128": model_summary(rdunet, x128), "sampler": model_summary(sampler, x)}
