@@ -118,6 +118,34 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    f32 both devices' rounds stay within GAN_F32_LOSS_RTOL and
    GAN_F32_GRAD_OF_LEAF / GAN_F32_GRAD_FLOOR of that f64 round.
 
+16. Kernel 1's wide form at every width above 256 (PARTIAL_SHAPES): a
+   partial last chunk of output channels and a partial last K slab, at
+   RDUNet(152)'s 304, 608 and 1216 on a 128^2 image, 320, 352, a ragged
+   image, and 258 and 260 (channels no multiple of 16 bytes: element-wise
+   loads), f32 and bf16, held and timed as in step 13; kernel 2's wide form
+   unpacked equal to kernel 1 at c = 608; the f32 RDUNet(152) forward
+   against the CPU's (SERVED_F32_TOL), 10 blocks wide, 4 on the CUDA cores
+   (c = 152).
+17. The search space's widths at batch 8 (SEARCH_SHAPES: c = 16, 48, 96
+   and 192 on the CUDA cores, 384 on the wide form), f32 and bf16, held
+   against the plain block and timed beside cuDNN (TF32 off) and the bound.
+18. Module-level remat: ``DiffusionTrainer(engine="flax", remat=...)`` on
+   RDUNetT-32, 8 x 256^2, acc 4, f32, 2 steps per mode: kernel-1 launches
+   56 / 112 / 88 per step (False, True, "highres"), all on the tensor
+   cores, finite losses, peak memory and step ms; one SGD step under each
+   mode equal to remat=False's (STEP_RTOL / STEP_ATOL).
+19. The searches on the card: ``run_search`` (3 trials x 1 epoch) on
+   loaders from step 11's folder, ``objective`` on two fixed trials (base
+   16 and 48 at T = 10: every width from 16 to 384), ``run_gan_search`` (2
+   trials x 1 epoch) on grayscale 256^2 pairs: the trial CSVs' column
+   order, finite values, kernel-1 launches per trial by variant, seconds
+   per trial.
+20. The comparative runner's metric loop (``eval.compare.evaluate_models``)
+   on seeded RDUNet(128) and RDUNetT-32 checkpoints at T = 20, LPIPS and
+   DISTS on seeded weights: 2 batches of 8 x 256^2, timed, 14 + 14*T
+   launches per batch; one batch of 2 x 128^2 with BM3D on the card and on
+   the CPU, the metric tables within COMPARE_PSNR_TOL / COMPARE_TOL.
+
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
 failure, and when CUDA or the port's package is missing.
@@ -1969,6 +1997,458 @@ def gan_main_path(torch, device):
     return out
 
 
+# Phase 16: the wide form at the widths it refused before: RDUNet(152) on a
+# 128^2 image (304 at 64^2, 608 at 32^2, 1216 at 16^2), base 80's and 88's
+# third level (320, 352 at 32^2), a ragged image, and two widths whose
+# channels are no multiple of 16 bytes (258: base 129's second level, inner
+# 129; 260: base 65's third, inner 130), which take the element-wise loads.
+PARTIAL_SHAPES = [(1, 304, 64, 64), (1, 320, 32, 32), (1, 352, 32, 32), (1, 608, 32, 32),
+                  (1, 1216, 16, 16), (2, 304, 20, 36), (1, 258, 64, 64), (1, 260, 32, 32)]
+PARTIAL_PACKED_SHAPE = (1, 608, 32, 32)
+RDUNET152_SIDE = 128
+# RDUNet(152)'s widths on a 128^2 image, blocks per forward: c = 152 takes the
+# CUDA cores (below 256, not in TC_WIDTHS), the others the wide form.
+RDUNET152_BLOCKS = [(152, 4), (304, 4), (608, 4), (1216, 2)]
+# Phase 17: the search space's new widths (base_filters 16 and 48) at batch 8
+# on 256^2 patches, and base 48's deepest block (the wide form).
+SEARCH_SHAPES = [(8, 16, 256, 256), (8, 48, 256, 256), (8, 96, 128, 128), (8, 192, 64, 64),
+                 (8, 384, 32, 32)]
+# Phase 18: module-level remat, kernel-1 launches per train step (accumulation
+# 4): 14 forward per micro-batch, and one recompute per rematerialized block.
+REMAT_LAUNCHES = {False: 56, True: 112, "highres": 88}
+REMAT_STEPS = 2
+# Phase 19: the searches on the card, their trials cut to a fraction of the
+# phase-11 folder (one epoch of a few steps each).
+SEARCH_TRIALS, GAN_SEARCH_TRIALS, SEARCH_PERCENTAGE = 3, 2, 0.35
+FIXED_TRIALS = ({"base_filters": 16, "timesteps": 10, "optimizer_choice": "adamw",
+                 "scheduler_choice": "step", "lr": 1e-4, "weight_decay": 1e-4},
+                {"base_filters": 48, "timesteps": 10, "optimizer_choice": "adam",
+                 "scheduler_choice": "cosine", "lr": 1e-4})
+# Phase 20: the comparative runner: RDUNet(128) (its default U-Net) and
+# RDUNetT-32 at T = 20 on batches of 8 x 256^2, and the card against the CPU
+# on one batch of 2 x 128^2 with BM3D (the CPU tests' tolerances).
+COMPARE_BATCHES, COMPARE_SIGMAS = 2, (15.0, 30.0)
+COMPARE_CHECK_SHAPE = (2, 3, 128, 128)
+COMPARE_PSNR_TOL, COMPARE_TOL = 1e-3, 1e-5
+
+
+def variant_counts(counter, before):
+    """(all, tensor cores, wide, CUDA cores) launched since ``before``."""
+    a, t, w = (x - y for x, y in zip(counts(counter), before))
+    return {"all": a, "tc": t, "wide": w, "cuda_core": a - t}
+
+
+def check_block_shapes(torch, device, shapes, label):
+    """Kernel 1 against the plain block at ``shapes`` in f32 (F32_TOL) and
+    bf16 (BF16_REL_TOL of max|y|), each one launch of the variant
+    ``block_variant`` names; timed beside the plain cuDNN block (TF32 off)
+    and the bound (f32 as 3xTF32, the least an f32-exact block can take on
+    this card; on the CUDA cores also at the f32 FMA peak).  Returns the
+    records."""
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
+
+    k1 = fb.fused_denoising_block
+    want_counts = {"tc_wide": (1, 1, 1, 0), "tc": (1, 1, 0, 0), "cuda_core": (1, 0, 0, 1)}
+    records = []
+    for shape in shapes:
+        c = shape[1]
+        params = block_params(torch, c, seed=c, device=device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        x32 = torch.randn(shape, generator=gen, device=device)
+        ref32 = fb.fused_denoising_block_plain(x32, params)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = x32.to(dtype).contiguous(memory_format=torch.channels_last)
+            kw = fb.pack_block_params(params, dtype, device)
+            variant = fb.block_variant(dtype, c)
+            before = counts(k1)
+            y = k1(x, params, kw)
+            torch.cuda.synchronize()
+            got = variant_counts(k1, before)
+            plain = lambda v: fb.fused_denoising_block_plain(v, params)
+            err_same, err_ref, ok, tol = held(torch, plain, y, x, ref32)
+            iters = 3 if variant == "cuda_core" and c * shape[2] * shape[3] > 2 ** 20 else 10
+            rec = {"shape": shape, "dtype": name, "variant": variant, "max_abs_err": err_same,
+                   "max_abs_err_vs_f32": err_ref, "ms": cuda_ms(torch, lambda: k1(x, params, kw),
+                                                                iters),
+                   "plain_ms": cuda_ms(torch, lambda: plain(x), 5), "library_ms": None}
+            rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, x.element_size())
+            if variant == "cuda_core" and dtype == torch.float32:
+                rec["cuda_core_bound_ms"] = bound_ms(shape, name, 4, "cuda_core")[0]
+            print(f"check {label} {shape} {name} ({variant}): max_abs_err vs plain({name}) "
+                  f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}) -> "
+                  f"{'ok' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms, plain (cuDNN) "
+                  f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                  + (f", f32 FMA bound {rec['cuda_core_bound_ms']:.4f} ms"
+                     if "cuda_core_bound_ms" in rec else "")
+                  + f", {block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s", flush=True)
+            if tuple(got.values()) != want_counts[variant]:
+                fail(f"kernel 1 at {shape} {name}: counted {got}, want {variant} once")
+            if not ok:
+                fail(f"kernel 1 ({variant}) disagrees with the plain block at {shape} {name}")
+            records.append(rec)
+        del params, x32, ref32, x, y, kw
+    return records
+
+
+def partial_widths_main_path(torch, device):
+    """Phase 16: the wide form at PARTIAL_SHAPES, and the CUDA-core kernel at
+    RDUNet(152)'s c = 152 blocks on 128^2; kernel 2's wide form at
+    PARTIAL_PACKED_SHAPE unpacked equal to kernel 1 bit for bit; the f32
+    RDUNet(152) forward on a 128^2 image against the CPU's (SERVED_F32_TOL),
+    10 of its 14 blocks through the wide form, 4 (c = 152) on the CUDA
+    cores."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
+    from vub_image_denoising_tpu_torch.ops.packing import pack2x2, unpack2x2
+
+    out = {"per_shape": check_block_shapes(
+        torch, device, PARTIAL_SHAPES + [(1, 152, RDUNET152_SIDE, RDUNET152_SIDE)], "width")}
+    k1, k2 = fb.fused_denoising_block, fb.fused_denoising_block_packed
+    shape = PARTIAL_PACKED_SHAPE
+    params = block_params(torch, shape[1], seed=shape[1], device=device)
+    pq = fb.pack_block_params_packed(params)
+    x32 = torch.randn(shape, generator=torch.Generator(device=device).manual_seed(1),
+                      device=device).contiguous(memory_format=torch.channels_last)
+    out["packed"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        before = counts(k2)
+        yq = k2(pack2x2(x), pq)
+        torch.cuda.synchronize()
+        got = variant_counts(k2, before)
+        diff = (unpack2x2(yq).float() - k1(x, params).float()).abs().max().item()
+        torch.cuda.synchronize()
+        print(f"check packed partial wide {shape} {dtype}: unpacked vs kernel 1 max abs diff "
+              f"{diff} (must be 0.0); {got}", flush=True)
+        if diff != 0 or (got["all"], got["wide"]) != (1, 1):
+            fail(f"kernel 2's wide form at {shape} {dtype}: diff {diff}, counted {got}")
+        out["packed"].append({"shape": shape, "dtype": str(dtype).split(".")[-1],
+                              "kernel1_max_abs_diff": diff, "launches": got})
+
+    model = RDUNet(3, 152, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.rand(1, 3, RDUNET152_SIDE, RDUNET152_SIDE,
+                   generator=torch.Generator().manual_seed(3)) * 2 - 1
+    with torch.no_grad():
+        want = model(x)
+        gpu = model.to(device).to(memory_format=torch.channels_last)
+        xd = x.to(device).contiguous(memory_format=torch.channels_last)
+        reset_counts(k1)
+        y = gpu(xd)
+        torch.cuda.synchronize()
+        got = variant_counts(k1, (0, 0, 0))
+        err = (y.cpu() - want).abs().max().item()
+        out["rdunet152"] = {"launches": got, "max_abs_err_vs_cpu": err,
+                            "forward_ms": {"f32": cuda_ms(torch, lambda: gpu(xd), 5),
+                                           "bf16": cuda_ms(torch,
+                                                           lambda: gpu(xd.to(torch.bfloat16)), 5)}}
+    wide = sum(n for c, n in RDUNET152_BLOCKS if c > 256)
+    want_counts = {"all": 14, "tc": wide, "wide": wide, "cuda_core": 14 - wide}
+    print(f"RDUNet(152) forward 1x{RDUNET152_SIDE}^2: f32 vs the CPU forward max abs err "
+          f"{err:.3e} (<= {SERVED_F32_TOL}); launches {got} (want {want_counts}); f32 "
+          f"{out['rdunet152']['forward_ms']['f32']:.3f} ms, bf16 "
+          f"{out['rdunet152']['forward_ms']['bf16']:.3f} ms", flush=True)
+    if got != want_counts or not err <= SERVED_F32_TOL:
+        fail(f"RDUNet(152) forward: launches {got}, f32 error {err}")
+    return out
+
+
+def remat_main_path(torch, device):
+    """Phase 18: DiffusionTrainer(engine="flax") on RDUNetT-32, 8 x 256^2,
+    accumulation 4, f32, REMAT_STEPS steps under each remat mode: kernel-1
+    launches per step REMAT_LAUNCHES, all on the tensor cores, finite
+    losses; the peak memory and the step's ms; one SGD step under each mode
+    equal to remat=False's (STEP_RTOL / STEP_ATOL)."""
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.train import (DiffusionTrainer, TrainState,
+                                                     make_diffusion_train_step)
+
+    batches = make_batches(torch, device)[:REMAT_STEPS]
+
+    def trainer_for(mode):
+        trainer = DiffusionTrainer(base_filters=BASE_FILTERS, timesteps=TIMESTEPS,
+                                   accumulation_steps=ACCUMULATION, engine="flax", remat=mode)
+        return trainer, trainer.init(steps_per_epoch=TRAIN_STEPS, seed=0)
+
+    out, sgd = {}, {}
+    for mode, want in REMAT_LAUNCHES.items():
+        trainer, state = trainer_for(mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"launches": [], "losses": [], "step_ms": []}
+        for noisy, clean in batches:
+            reset_counts(k1)
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, noisy, clean)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["launches"].append(variant_counts(k1, (0, 0, 0)))
+            rec["losses"].append(loss.item())
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        print(f"remat={mode!r} diffusion train RDUNetT-32 {TRAIN_BATCH}x256x256 acc "
+              f"{ACCUMULATION} f32: losses {rec['losses']}, step ms {rec['step_ms']}, launches "
+              f"per step {[r['all'] for r in rec['launches']]} (want {want}, all on the tensor "
+              f"cores), peak memory {rec['peak_memory_bytes'] / 2 ** 30:.3f} GiB", flush=True)
+        if (not all(math.isfinite(v) for v in rec["losses"])
+                or any((r["all"], r["tc"]) != (want, want) for r in rec["launches"])):
+            fail(f"remat={mode!r}: losses {rec['losses']}, launches {rec['launches']}")
+        del trainer, state
+        trainer, state = trainer_for(mode)
+        opt = torch.optim.SGD(list(state.params.values()), lr=1e-2)
+        sgd_state = TrainState(state.params, opt,
+                               torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0),
+                               clip_norm=trainer.clip_norm)
+        make_diffusion_train_step(trainer.unet_apply, trainer.diffusion, ACCUMULATION)(
+            sgd_state, trainer.generator, *batches[0])
+        sgd[mode] = {k: v.detach().clone() for k, v in state.params.items()}
+        out[repr(mode)] = rec
+        del trainer, state, opt, sgd_state
+    for mode in (True, "highres"):
+        worst = max(((v - sgd[mode][k]).abs() / (STEP_ATOL + STEP_RTOL * v.abs())).max().item()
+                    for k, v in sgd[False].items())
+        out[repr(mode)]["sgd_step_worst_vs_plain"] = worst
+        print(f"remat={mode!r} SGD step vs remat=False: params worst |diff| / (atol "
+              f"{STEP_ATOL} + rtol {STEP_RTOL}*|p|) = {worst:.3f} (must be <= 1)", flush=True)
+        if worst > 1:
+            fail(f"remat={mode!r} trains another model than remat=False")
+    return out
+
+
+class FixedTrial:
+    """A search trial that answers every suggestion from ``values`` (for
+    timing chosen widths through ``objective``); it never prunes."""
+
+    def __init__(self, values, number):
+        self.values, self.number, self.params, self.reports = values, number, {}, []
+
+    def _take(self, name, *args, **kwargs):
+        self.params[name] = self.values[name]
+        return self.values[name]
+
+    suggest_int = suggest_float = suggest_categorical = _take
+
+    def report(self, value, step):
+        self.reports.append((step, value))
+
+    def should_prune(self):
+        return False
+
+
+def csv_header(path):
+    with open(path) as f:
+        return f.readline().strip().split(",")
+
+
+def search_main_path(torch, device):
+    """Phase 19: ``run_search`` (SEARCH_TRIALS trials x 1 epoch) on loaders
+    from the phase-11 folder, ``objective`` on FIXED_TRIALS (base 16 and 48
+    at T = 10: every width from 16 to 384), ``run_gan_search``
+    (GAN_SEARCH_TRIALS x 1 epoch) on grayscale 256^2 pairs: the trial CSVs'
+    headers in pandas' column order, finite values, kernel-1 launches per
+    trial split by variant (each trial's steps and samplers, all through the
+    kernels), seconds per trial."""
+    from vub_image_denoising_tpu_torch.data.loader import load_data
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.search import gan_search, hyperparams
+    from vub_image_denoising_tpu_torch.search.optuna_compat import TrialPruned
+
+    out = {"trials": [], "fixed": [], "gan_trials": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_folder(tmp)
+        train_loader, val_loader = load_data(
+            os.path.join(tmp, "DIV2K_train_HR.nosync"), batch_size=TRAIN_BATCH,
+            dataset_percentage=SEARCH_PERCENTAGE, use_rgb=True, device=device, seed=0)
+        steps = len(train_loader)
+
+        def want_launches(trial):
+            # the epoch's micro-batch forwards, and two samplers (the epoch's
+            # report and the returned value) of 14 * T forwards
+            return 14 * ACCUMULATION * steps + 2 * 14 * trial.params["timesteps"]
+
+        def counted(objective, records):
+            def run(trial, *args, **kwargs):
+                before = counts(k1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pruned = False
+                try:
+                    value = objective(trial, *args, **kwargs)
+                except TrialPruned:
+                    # pruned after the epoch's report: one sampler, no value
+                    value, pruned = None, True
+                torch.cuda.synchronize()
+                rec = {"number": trial.number, "params": dict(trial.params), "value": value,
+                       "pruned": pruned, "sec": time.perf_counter() - t0,
+                       "launches": variant_counts(k1, before)}
+                records.append(rec)
+                want = want_launches(trial) - (14 * trial.params["timesteps"] if pruned else 0)
+                print(f"search trial {trial.number} {rec['params']}: "
+                      + ("pruned" if pruned else f"-psnr {value:.4f}")
+                      + f", {rec['sec']:.1f} s, kernel-1 launches {rec['launches']} (want "
+                      f"{want})", flush=True)
+                if rec["launches"]["all"] != want or not (pruned or math.isfinite(value)):
+                    fail(f"search trial {trial.number}: value {value}, launches "
+                         f"{rec['launches']}")
+                if pruned:
+                    raise TrialPruned()
+                return value
+            return run
+
+        csv_path = os.path.join(tmp, "trial_results.csv")
+        objective = hyperparams.objective
+        hyperparams.objective = counted(objective, out["trials"])
+        try:
+            study = hyperparams.run_search(train_loader, val_loader, n_trials=SEARCH_TRIALS,
+                                           num_epochs=1, csv_path=csv_path, seed=0)
+        finally:
+            hyperparams.objective = objective
+        header = []
+        for t in study.trials:
+            header += [k for k in (*t.params, "psnr") if k not in header]
+        out["csv_header"] = csv_header(csv_path)
+        if out["csv_header"] != header or len(study.trials) != SEARCH_TRIALS:
+            fail(f"search CSV header {out['csv_header']}, want {header}")
+
+        for i, values in enumerate(FIXED_TRIALS):
+            trial = FixedTrial(values, 100 + i)
+            counted(objective, out["fixed"])(trial, train_loader, val_loader, num_epochs=1,
+                                             output_root=os.path.join(tmp, "fixed"))
+            rec, forwards = out["fixed"][-1], want_launches(trial) // 14
+            base = values["base_filters"]
+            widths = [base, 2 * base, 4 * base, 8 * base]
+            cc = sum(4 if level < 3 else 2 for level, c in enumerate(widths)
+                     if c < 256 and c not in (32, 64, 128, 256))
+            wide = sum(4 if level < 3 else 2 for level, c in enumerate(widths) if c > 256)
+            want = {"all": 14 * forwards, "tc": (14 - cc) * forwards, "wide": wide * forwards,
+                    "cuda_core": cc * forwards}
+            if rec["launches"] != want:
+                fail(f"fixed trial base {base}: launches {rec['launches']}, want {want}")
+
+        gen_train = gan_pairs(torch, device, 2, (GAN_BATCH, 1, GAN_SIDE, GAN_SIDE), seed=21)
+        gen_val = gan_pairs(torch, device, 1, (GAN_BATCH, 1, GAN_SIDE, GAN_SIDE), seed=22)
+        gan_csv = os.path.join(tmp, "gan_trials.csv")
+        objective_gan = gan_search.objective_gan
+
+        def timed_gan(trial, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0, value = time.perf_counter(), None
+            try:
+                value = objective_gan(trial, *args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                out["gan_trials"].append({"number": trial.number, "params": dict(trial.params),
+                                          "value": value, "pruned": value is None,
+                                          "reported": getattr(trial, "intermediate", {}).get(0),
+                                          "sec": time.perf_counter() - t0})
+                print(f"gan search trial {trial.number}: val L1 reported "
+                      f"{out['gan_trials'][-1]['reported']}, "
+                      + ("pruned" if value is None else "completed")
+                      + f", {out['gan_trials'][-1]['sec']:.1f} s", flush=True)
+            return value
+
+        gan_search.objective_gan = timed_gan
+        try:
+            gan_search.run_gan_search(gen_train, gen_val, n_trials=GAN_SEARCH_TRIALS,
+                                      num_epochs=1, csv_path=gan_csv, device=device)
+        finally:
+            gan_search.objective_gan = objective_gan
+        out["gan_csv_header"] = csv_header(gan_csv)
+        want = ["lambda_pixel", "lambda_perceptual", "lambda_edge", "lr", "val_l1"]
+        if (out["gan_csv_header"] != want or len(out["gan_trials"]) != GAN_SEARCH_TRIALS
+                or not all(t["reported"] is not None and math.isfinite(t["reported"])
+                           for t in out["gan_trials"])):
+            fail(f"gan search: header {out['gan_csv_header']}, trials {out['gan_trials']}")
+    out["train_steps_per_trial"] = steps
+    return out
+
+
+def compare_batches(torch, device, shape, sigmas, seed):
+    """(degraded, gt, sigma) batches: smooth RGB fields in [-1, 1] plus
+    Gaussian noise at each sigma (of 255)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for sigma in sigmas:
+        n, c, h, w = shape
+        coarse = torch.rand(n, c, h // 16, w // 16, generator=gen, device=device) * 2 - 1
+        gt = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+        noisy = gt + (sigma / 127.5) * torch.randn(gt.shape, generator=gen, device=device)
+        out.append((noisy.clamp(-1, 1), gt, torch.full((n,), sigma, device=device)))
+    return out
+
+
+def compare_main_path(torch, device):
+    """Phase 20: ``eval.compare.evaluate_models`` (the metric loop of
+    ``evaluate_model_and_plot``, no figures) on seeded random-weight
+    checkpoints saved as reference .pth files, RDUNet(128) and RDUNetT-32 at
+    T = 20, LPIPS and DISTS on seeded synthetic weights: COMPARE_BATCHES
+    batches of 8 x 256^2, timed, kernel 1 launched 14 times per U-Net
+    forward and 14 * T per sampler call, all on the tensor cores; then one
+    batch of 2 x 128^2 with BM3D on the card and on the CPU (TF32 off): the
+    metric tables equal to COMPARE_PSNR_TOL (dB) and COMPARE_TOL."""
+    from vub_image_denoising_tpu_torch.eval.compare import KEYS, VARIANTS, evaluate_models
+    from vub_image_denoising_tpu_torch.models import RDUNet, RDUNetT
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        unet_path, diff_path = os.path.join(tmp, "rdunet128.pth"), os.path.join(tmp, "diff.pth")
+        save_pth(unet_path, RDUNet(3, 128, generator=torch.Generator().manual_seed(0)).state_dict())
+        save_pth(diff_path, RDUNetT(BASE_FILTERS, generator=torch.Generator().manual_seed(1))
+                 .state_dict(), epoch=1, prefix="unet.")
+        kwargs = dict(epochs=[1], diffusion_model_paths=[diff_path], unet_model_path=unet_path,
+                      include_noise_level=True, timesteps=TIMESTEPS, unet_base_filters=128,
+                      diffusion_base_filters=BASE_FILTERS)
+        batches = compare_batches(torch, device, (TRAIN_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE),
+                                  COMPARE_SIGMAS[:COMPARE_BATCHES], seed=31)
+        reset_counts(k1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = evaluate_models(val_loader=batches, device=device, **kwargs)
+        torch.cuda.synchronize()
+        out["sec"] = time.perf_counter() - t0
+        got = variant_counts(k1, (0, 0, 0))
+        per_batch = 14 + 14 * TIMESTEPS
+        want = {"all": COMPARE_BATCHES * per_batch, "tc": COMPARE_BATCHES * per_batch,
+                "wide": COMPARE_BATCHES * 6, "cuda_core": 0}
+        out["launches"] = got
+        out["unet_ms"] = [t * 1e3 for t in ev.inference_times["unet"]]
+        out["sampler_ms"] = [t * 1e3 for t in ev.inference_times["diffusion"]]
+        out["means"] = {f"{k}_{v}": float(sum(ev.metrics[f"{k}_{v}"]) / len(ev.metrics[f"{k}_{v}"]))
+                        for k in KEYS for v in VARIANTS if v != "bm3d"}
+        print(f"compare {COMPARE_BATCHES} x {TRAIN_BATCH}x256x256 (RDUNet(128), RDUNetT-32 "
+              f"T={TIMESTEPS}): {out['sec']:.1f} s; U-Net ms per batch {out['unet_ms']}, sampler "
+              f"ms per batch {out['sampler_ms']}; kernel-1 launches {got} (want {want}); means "
+              f"{out['means']}", flush=True)
+        if got != want or not all(math.isfinite(v) for v in out["means"].values()):
+            fail(f"compare: launches {got}, means {out['means']}")
+
+        small = compare_batches(torch, device, COMPARE_CHECK_SHAPE, COMPARE_SIGMAS[1:], seed=32)
+        t0 = time.perf_counter()
+        card_ev = evaluate_models(val_loader=small, device=device, use_bm3d=True, **kwargs)
+        cpu_ev = evaluate_models(val_loader=[tuple(t.cpu() for t in b) for b in small],
+                                 device="cpu", use_bm3d=True, **kwargs)
+        out["check_sec"] = time.perf_counter() - t0
+        worst = {}
+        for k in KEYS:
+            for v in VARIANTS:
+                a, b = card_ev.metrics[f"{k}_{v}"], cpu_ev.metrics[f"{k}_{v}"]
+                if v == "bm3d" and k in ("lpips", "dists"):
+                    continue
+                worst[f"{k}_{v}"] = max(abs(x - y) for x, y in zip(a, b))
+        out["card_vs_cpu"] = worst
+        bad = {key: e for key, e in worst.items()
+               if not e <= (COMPARE_PSNR_TOL if key.startswith("psnr") else COMPARE_TOL)}
+        print(f"compare card vs CPU, {COMPARE_CHECK_SHAPE} with BM3D: worst |diff| {worst} "
+              f"(psnr <= {COMPARE_PSNR_TOL} dB, others <= {COMPARE_TOL}); "
+              f"{out['check_sec']:.1f} s", flush=True)
+        if bad:
+            fail(f"compare: the card's metrics differ from the CPU's: {bad}")
+    return out
+
+
 def step_breakdown(torch, trainer, state, batch, step_ms):
     """Split one "pallas" step: forward (kernel-1 blocks, the rest), backward
     (the eager blocks' recompute, the rest), the optimizer (clip, AdamW,
@@ -2187,6 +2667,22 @@ def main():
     supervised128["phase_sec"] = time.perf_counter() - phase_t0
     print(f"RDUNet(128) train phase: {supervised128['phase_sec']:.1f} s", flush=True)
     gans = gan_main_path(torch, device)
+    phase_t0, phase_sec = time.perf_counter(), {}
+    partial = partial_widths_main_path(torch, device)
+    phase_sec[16] = time.perf_counter() - phase_t0
+    search_widths = check_block_shapes(torch, device, SEARCH_SHAPES, "search width")
+    phase_sec[17] = time.perf_counter() - phase_t0 - sum(phase_sec.values())
+    remat = remat_main_path(torch, device)
+    phase_sec[18] = time.perf_counter() - phase_t0 - sum(phase_sec.values())
+    search = search_main_path(torch, device)
+    phase_sec[19] = time.perf_counter() - phase_t0 - sum(phase_sec.values())
+    comparison = compare_main_path(torch, device)
+    phase_sec[20] = time.perf_counter() - phase_t0 - sum(phase_sec.values())
+    print("phases 16-20: " + ", ".join(f"{k}: {v:.1f} s" for k, v in phase_sec.items())
+          + f"; {sum(phase_sec.values()):.1f} s together", flush=True)
+    remat_launches = {k: sum(r["tc"] for r in v["launches"]) for k, v in remat.items()}
+    search_launches = {"run_search": sum(t["launches"]["all"] for t in search["trials"]),
+                       "fixed": sum(t["launches"]["all"] for t in search["fixed"])}
 
     def per_forward(recs, shapes, dtype):
         return [(r, cnt) for r in recs for s, cnt in shapes
@@ -2262,7 +2758,10 @@ def main():
                          + sum(folder_launches.values())
                          + sum(evaluation["tc_launches"].values())
                          + sum(v["tc"] for v in rdunet128["launches"].values())
-                         + supervised128["launches"]["tc"]),
+                         + supervised128["launches"]["tc"]
+                         + partial["rdunet152"]["launches"]["all"]
+                         + sum(remat_launches.values()) + sum(search_launches.values())
+                         + comparison["launches"]["all"]),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -2276,6 +2775,9 @@ def main():
                                  "eval": eval_launches,
                                  "rdunet128": rdunet128["launches"],
                                  "supervised128": supervised128["launches"],
+                                 "rdunet152": partial["rdunet152"]["launches"],
+                                 "remat": remat_launches, "search": search_launches,
+                                 "compare": comparison["launches"],
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
             "train_step_ms": step_ms,
@@ -2287,12 +2789,18 @@ def main():
             "diffusion_validate": validation,
             "folder_train": folder,
             "sidd_eval": evaluation,
-            "wide": {"variant": "tc_wide", "widths": "c > 256 (512, 1024)",
+            "wide": {"variant": "tc_wide", "widths": "every c > 256",
                      "source": CSRC + "fused_block_wide_tc.cu", "per_shape": wide_records,
                      "ptxas": ptxas["fused_block_wide_tc"]},
             "rdunet128": rdunet128,
             "supervised128": supervised128,
             "gan": gans,
+            "partial_wide": partial,
+            "search_widths": search_widths,
+            "remat": remat,
+            "search": search,
+            "compare": comparison,
+            "phase_sec": phase_sec,
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc",
                                                   "fused_block_wide_tc")},
             "card": card,
@@ -2313,7 +2821,7 @@ def main():
             "launches_by_path": {"trainable_block": trainable["fused_denoising_block_packed"]},
             "trainable_max_grad_err": trainable["max_grad_err"],
             "wide": {"variant": "tc_wide", "source": CSRC + "fused_block_wide_tc.cu",
-                     "per_shape": wide_packed_records},
+                     "per_shape": wide_packed_records, "partial": partial["packed"]},
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block_packed", "fused_block_packed_tc")},
             "card": card,
         },

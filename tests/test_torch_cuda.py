@@ -345,17 +345,52 @@ def test_cuda_packed_wide_kernel_matches_kernel_1(cuda, shape, dtype):
 
 def test_cuda_wide_kernel_rejects_what_it_does_not_take(cuda):
     """An odd side in the packed layout, a shared-memory size that is not the
-    kernel's, a width that is no multiple of two channel chunks (c = 320)
-    and an inner width that is not c / 2: the launch fails and the wrapper
-    raises."""
+    kernel's and an inner width that is not c / 2: the launch fails and the
+    wrapper raises."""
     params = _block(512, cuda)
     x = _input((1, 512, 7, 8), cuda, "float32")
     kw = fb.pack_block_params(params, x.dtype, cuda)
     smem = fb.wide_smem_bytes(4)
     for args in ((1, 7, 8, 512, 256, smem, True), (1, 7, 8, 512, 256, smem - 16, False),
-                 (1, 7, 8, 320, 160, smem, False), (1, 7, 8, 512, 192, smem, False)):
+                 (1, 7, 8, 512, 192, smem, False)):
         with pytest.raises(RuntimeError, match="launch failed"):
             fb._launch_wide("fused_denoising_block", x, kw, *args)
+
+
+# Widths above 256 that are no multiple of the 64-channel chunk: RDUNet(152)
+# on a 128x128 image (304 at 64^2, 608 at 32^2, 1216 at 16^2), base 80's and
+# 88's third level (320, 352 at 32^2), a ragged image, and two widths whose
+# channels are no multiple of 16 bytes (258 = 2 x 129, inner 129; 260 =
+# 4 x 65, inner 130), which take the element-wise loads.
+PARTIAL_SHAPES = [(1, 304, 64, 64), (1, 320, 32, 32), (1, 352, 32, 32), (1, 608, 32, 32),
+                  (1, 1216, 16, 16), (2, 304, 20, 36), (1, 258, 64, 64), (1, 260, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", PARTIAL_SHAPES)
+def test_cuda_wide_kernel_partial_chunks_match_plain(cuda, shape, dtype):
+    """The wide form takes every c > 256: a partial last chunk of output
+    channels and a partial last K slab, held against the plain block; one
+    block, counted once as a tensor-core launch and a wide one."""
+    params = _block(shape[1], cuda)
+    x = _input(shape, cuda, dtype)
+    counter = fb.fused_denoising_block
+    before = (counter.launches, counter.tc_launches, counter.wide_launches)
+    y = counter(x, params)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.tc_launches, counter.wide_launches) == tuple(
+        v + 1 for v in before)
+    _check(y, x, params)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 608, 32, 32), (1, 258, 20, 36)])
+def test_cuda_packed_wide_kernel_partial_chunks_match_kernel_1(cuda, shape, dtype):
+    params, pq, x, xq = _packed_case(shape, cuda, dtype)
+    yq = fb.fused_denoising_block_packed(xq, pq)
+    torch.cuda.synchronize()
+    _check_packed(yq, xq, pq)
+    assert torch.equal(unpack2x2(yq), fb.fused_denoising_block(x, params))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -695,3 +730,25 @@ def test_cuda_engines_launch_kernel_1(cuda, tmp_path, engine, launches, dtype):
     want = ref(x)
     tol = 2e-2 * want.abs().max().item() if bf16 else 2 * steps * 2e-4
     assert (y - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("remat,per_micro_batch", [(False, 14), (True, 28), ("highres", 22)])
+def test_cuda_remat_launch_counts(cuda, remat, per_micro_batch):
+    """DiffusionTrainer(engine="flax", remat=...) on the card: each
+    micro-batch forward launches kernel 1 14 times, and the backward
+    launches it once more per rematerialized block (all 14, or the 8 at
+    scales 0 and 1); the step's loss is finite."""
+    from vub_image_denoising_tpu_torch.train import DiffusionTrainer
+
+    trainer = DiffusionTrainer(base_filters=32, timesteps=4, accumulation_steps=2, engine="flax",
+                               remat=remat)
+    state = trainer.init(steps_per_epoch=1, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    clean = torch.rand(4, 3, 32, 32, generator=gen, device=cuda) * 2 - 1
+    counter = fb.fused_denoising_block
+    before = (counter.launches, counter.tc_launches)
+    state, loss = trainer.train_step(state, clean + 0.1 * torch.randn_like(clean), clean)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert (counter.launches - before[0], counter.tc_launches - before[1]) == (
+        2 * per_micro_batch, 2 * per_micro_batch)

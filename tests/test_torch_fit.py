@@ -4,8 +4,8 @@ diffusion CLI, preemption and the presets, against the JAX package's.
 - A checkpoint the port writes loads with the JAX ``load_pth`` (``unet.``
   prefix) with its params exact; one the JAX ``save_pth`` writes (params
   and ``optax_leaves``) resumes in the port with the params exact, the LR at
-  JAX's ``step_lr`` position (rtol 1e-7) and Adam's state fresh; both load
-  with ``torch.load(weights_only=True)``.
+  JAX's ``step_lr`` position (rtol 1e-7) and Adam's moments and count from
+  the leaves; both load with ``torch.load(weights_only=True)``.
 - Resume is exact: ``fit`` for 2 epochs against ``fit`` for 1 epoch, then
   ``load_checkpoint`` and ``fit(start_epoch=1)``, with the loaders' ``.epoch``
   set to the resumed epoch (the JAX package's contract): params, optimizer
@@ -92,7 +92,8 @@ def test_port_checkpoint_loads_in_jax_and_jax_checkpoint_resumes_in_port(tmp_pat
     jpath = str(tmp_path / "jax.pth")
     jckpt.save_pth(jpath, jparams, epoch=epoch, prefix="unet.",
                    extra={"optimizer_state_dict": {}, "scheduler_state_dict": {},
-                          "optax_leaves": jckpt.optax_state_to_safe(fresh_adam(tx, template))})
+                          "optax_leaves": jckpt.optax_state_to_safe(
+                              adam_at(tx, template, epoch * steps, rng))})
     assert torch.load(jpath, weights_only=True)["optax_leaves"]
     fresh = pdiff.DiffusionTrainer(base_filters=BASE, timesteps=T, device="cpu")
     state = fresh.init(steps_per_epoch=steps, seed=0)
@@ -103,7 +104,19 @@ def test_port_checkpoint_loads_in_jax_and_jax_checkpoint_resumes_in_port(tmp_pat
         assert torch.equal(v, want[k]), k
     lr = state.optimizer.param_groups[0]["lr"]
     np.testing.assert_allclose(lr, float(jsched.step_lr(1e-4, steps)(epoch * steps)), rtol=1e-7)
-    assert state.optimizer.state_dict()["state"] == {}
+    opt = state.optimizer.state_dict()["state"]
+    assert len(opt) == len(want) and all(float(v["step"]) == epoch * steps for v in opt.values())
+    assert all(bool((v["exp_avg_sq"] > 0).all()) for v in opt.values())
+
+
+def adam_at(tx, template, count, rng):
+    """An optax state of ``tx`` over ``template`` after ``count`` updates:
+    its counts set to ``count`` and its moments drawn from ``rng``."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, leaf: np.full(leaf.shape, count, leaf.dtype)
+        if jax.tree_util.keystr(path).endswith(".count")
+        else rng.rand(*leaf.shape).astype(leaf.dtype) + 0.1,
+        fresh_adam(tx, template))
 
 
 def fresh_adam(tx, template):

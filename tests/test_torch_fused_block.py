@@ -105,7 +105,8 @@ def test_tile_fits_shared_memory(c, itemsize):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,want", [(512, "tc_wide"), (1024, "tc_wide"), (16, "cuda_core"),
-                                    (48, "cuda_core"), (256, "tc")])
+                                    (48, "cuda_core"), (256, "tc"), (304, "tc_wide"),
+                                    (320, "tc_wide"), (608, "tc_wide"), (1216, "tc_wide")])
 def test_wide_variant_rule(dtype, c, want):
     """c > 256 (RDUNet-64's and RDUNet-128's 512 and 1024) takes the wide
     form in both dtypes, its tile and shared memory; c = 16 and 48 stay on
@@ -116,6 +117,31 @@ def test_wide_variant_rule(dtype, c, want):
     assert fb.packed_block_tile(dtype, 2, 4 * c, 10, 18, 132) == got
     if want == "tc_wide":
         assert got[1:] == (*fb.WIDE_TILE, fb.wide_smem_bytes(dtype.itemsize))
+
+
+def rdunet_widths(base):
+    """The DenoisingBlock widths of an RDUNet of ``base`` filters."""
+    return (base, 2 * base, 4 * base, 8 * base)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_rdunet_width_has_a_kernel(dtype):
+    """No width an RDUNet of base 1-160 reaches lacks a kernel: block_tile
+    returns a tile that fits shared memory for each, in both dtypes, and
+    every c > 256 (whatever c is modulo the 64-channel chunk or the 16-byte
+    piece) takes the wide form, every c < 256 outside TC_WIDTHS the CUDA
+    cores."""
+    widths = sorted({c for base in range(1, 161) for c in rdunet_widths(base)})
+    for c in widths:
+        variant, th, tw, smem = fb.block_tile(dtype, 8, c, 32, 32, 132)
+        assert smem <= 232448, c
+        if c > 256:
+            assert (variant, (th, tw)) == ("tc_wide", fb.WIDE_TILE), c
+        elif c in fb.TC_WIDTHS:
+            assert variant == "tc", c
+        else:
+            assert variant == "cuda_core", c
+    assert {c for c in widths if c > 256 and c % (2 * fb.WIDE_N)} >= {304, 352, 608, 1216}
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])

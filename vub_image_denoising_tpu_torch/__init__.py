@@ -17,7 +17,10 @@ module under the same names.  It imports torch and never JAX.
   preemption-safe stops, TensorBoard logging, model info (FLOPs, latency,
   peak memory), profiling, the device health probe, random streams
 - ``eval``      — the denoising CLI and the HTTP server (``rdunet`` and
-  ``diffusion``), image metrics, SIDD validation and the Kaggle submission
+  ``diffusion``), image metrics, SIDD validation and the Kaggle submission,
+  LPIPS and DISTS, the comparative runner and its figures
+- ``search``    — the hyperparameter searches over the diffusion trainer and
+  the denoising GAN (optuna, or a built-in TPE engine)
 """
 
 __version__ = "0.1.0"

@@ -289,6 +289,38 @@ def load_data(
     )
 
 
+def plot_examples(data_loader, num_examples: int = 4, path: str = "examples.png"):
+    """Plot degraded/GT pairs from a loader (data_loader.py:81-126 /
+    SIDD_dataset.py:178-232) to ``path`` on matplotlib's headless backend,
+    imported here.  Batches hold NCHW images in [-1, 1] on any device."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axs = plt.subplots(num_examples, 2, figsize=(10, 5 * num_examples), squeeze=False)
+    count = 0
+    for batch in data_loader:
+        degraded, gt = batch[0], batch[1]
+        for i in range(degraded.shape[0]):
+            if count >= num_examples:
+                break
+            for j, (img, title) in enumerate([(degraded[i], "Degraded Image"),
+                                              (gt[i], "Ground Truth Image")]):
+                chw = torch.as_tensor(img).float().cpu().numpy()
+                arr = np.clip(np.transpose(chw, (1, 2, 0)).squeeze() * 0.5 + 0.5, 0, 1)
+                axs[count, j].imshow(arr, cmap="gray" if arr.ndim == 2 else None)
+                axs[count, j].set_title(title)
+                axs[count, j].axis("off")
+            count += 1
+        if count >= num_examples:
+            break
+    plt.tight_layout()
+    plt.savefig(path)
+    plt.close(fig)
+    return path
+
+
 def load_sidd_data(
     root_folder: str,
     batch_size: int = 4,

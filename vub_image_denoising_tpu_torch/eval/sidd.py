@@ -19,8 +19,6 @@ layout pandas gives them (header, column order, ``repr`` floats, ``\\n``).
 """
 
 import base64
-import csv
-import math
 import time
 from typing import Callable, Optional
 
@@ -28,6 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.table import write_csv
 from .metrics import psnr_per_image, ssim_ref_per_image
 
 # At most this many batches are enqueued on the device and not yet synced:
@@ -96,20 +95,6 @@ def _to_device(array, device):
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _write_csv(path, header, rows):
-    """A CSV as pandas' ``to_csv(index=False)`` writes it: floats as ``repr``,
-    NaN as an empty field, ``\\n`` line ends."""
-    def field(v):
-        if isinstance(v, float):
-            return "" if math.isnan(v) else repr(v)
-        return v
-
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(header)
-        w.writerows([field(v) for v in row] for row in rows)
 
 
 def evaluate_sidd(
@@ -212,7 +197,7 @@ def evaluate_sidd(
         "n_blocks": len(psnrs),
     }
     if csv_path:
-        _write_csv(csv_path, ["Method", "MACs (G)", "Inference Time (ms)", "PSNR", "SSIM"],
+        write_csv(csv_path, ["Method", "MACs (G)", "Inference Time (ms)", "PSNR", "SSIM"],
                    [[method_name, "-", results["avg_inference_time_ms"], results["avg_psnr"],
                      results["avg_ssim"]]])
     if sample_plot_path and samples:
@@ -285,5 +270,5 @@ def make_kaggle_submission(
             assert out_u8.shape == noisy_u8.shape and out_u8.dtype == noisy_u8.dtype
             out_strings.extend(array_to_base64string(out_u8[k]) for k in range(len(out_u8)))
 
-    _write_csv(output_file, ["ID", "BLOCK"], [[i, s] for i, s in enumerate(out_strings)])
+    write_csv(output_file, ["ID", "BLOCK"], [[i, s] for i, s in enumerate(out_strings)])
     return output_file

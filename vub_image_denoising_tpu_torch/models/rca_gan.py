@@ -218,3 +218,30 @@ class Discriminator(nn.Module):
         # the reference flattens NCHW (C, H, W); the JAX package's fc1 rows
         # follow its NHWC flatten, which params_to_state_dict does not reorder
         return self.fc_layers(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False,
+                        nchw_flatten: bool = False):
+        """``nn.Module.load_state_dict``; with ``nchw_flatten=True`` the file
+        is the original PyTorch reference's critic, whose fc1 takes the
+        features flattened NCHW: its input columns are permuted to this
+        module's NHWC flatten (``fc1_nchw_to_nhwc``), so the critic computes
+        the reference's function.  The default load takes the file as it is
+        (the port's and the JAX package's NHWC order)."""
+        if nchw_flatten:
+            state_dict = fc1_nchw_to_nhwc(state_dict)
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
+
+def fc1_nchw_to_nhwc(state_dict, key: str = "fc_layers.0.weight", channels: int = 256):
+    """A critic state_dict whose fc1 (``key``, (out, C*S*S)) reads NCHW-flat
+    features, with its input columns reordered to read NHWC-flat ones:
+    column (h*S + w)*C + c of the result is column c*S*S + h*S + w of the
+    file's."""
+    sd = dict(state_dict)
+    w = sd[key]
+    side = int(round((w.shape[1] // channels) ** 0.5))
+    if channels * side * side != w.shape[1]:
+        raise ValueError(f"{key} has {w.shape[1]} inputs, not {channels} x S x S")
+    sd[key] = w.reshape(w.shape[0], channels, side, side).permute(0, 2, 3, 1).reshape(
+        w.shape[0], -1).contiguous()
+    return sd

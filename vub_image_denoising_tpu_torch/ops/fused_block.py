@@ -23,11 +23,12 @@ Two kernels compute it; the choice between them is static (``block_variant``):
   error-compensated TF32 (3xTF32: each operand split into two TF32 values,
   three products per pair), which keeps exact-f32 accuracy, where one TF32
   product would not;
-- f32 and bf16 at c > 256 with c a multiple of 2 * ``WIDE_N`` (512, 1024:
-  every RDUNet-64 and RDUNet-128 width above 256) launch the wide form,
+- f32 and bf16 at every c > 256 (512, 1024: RDUNet-64's and RDUNet-128's;
+  304, 384, 608, 1216, ...: the other bases') launch the wide form,
   ``csrc/fused_block_wide_tc.cu``: the same tensor-core arithmetic as four
   launches of one implicit-GEMM conv (an 8 x 16 pixel tile by a chunk of
-  ``WIDE_N`` output channels, K streamed in slabs), with o0..o2 in a device
+  ``WIDE_N`` output channels, the last chunk and the last K slab partial
+  where c is no multiple of them, K streamed in slabs), with o0..o2 in a device
   workspace (``wide_workspace_shape``) instead of shared memory, so its
   shared memory (``wide_smem_bytes``) does not grow with c.  Counted as a
   tensor-core launch, and in ``.wide_launches``;
@@ -182,7 +183,7 @@ def block_variant(dtype, c: int) -> str:
         return "cuda_core"
     if c in TC_WIDTHS:
         return "tc"
-    return "tc_wide" if c > 256 and c % (2 * WIDE_N) == 0 else "cuda_core"
+    return "tc_wide" if c > 256 else "cuda_core"
 
 
 def block_tile(dtype, n: int, c: int, h: int, w: int, sms: int):

@@ -113,8 +113,9 @@ class DiffusionTrainer:
     ``engine``: ``"flax"`` runs the model's modules (every DenoisingBlock on
     the kernel, trained through ``fused_block_trainable``); ``"xla"`` the
     eager engine of ``models.fused_apply``; ``"pallas"`` the same engine with
-    the block kernel and the recompute backward.  ``remat`` recomputes the
-    eager engines' blocks in the backward (module-level remat is not ported).
+    the block kernel and the recompute backward.  ``remat`` (False, True or
+    ``"highres"``) is the model's (``RDUNetT(remat=...)``) with ``"flax"``,
+    and recomputes the eager engines' blocks in the backward with the others.
     ``sampling`` is the validation sampler: ``"improved"`` (T steps) or
     ``"direct"`` (one call at t = 1).  ``state.params`` are the model's own
     parameters."""
@@ -135,7 +136,7 @@ class DiffusionTrainer:
     compute_dtype: Any = torch.float32
     writer: Any = None
     engine: str = "flax"
-    remat: bool = False
+    remat: Any = False
     device: Any = None
 
     def init(self, steps_per_epoch: int, seed: int = 0) -> TrainState:
@@ -147,13 +148,11 @@ class DiffusionTrainer:
             raise ValueError(f"unknown engine {self.engine!r} (want one of {ENGINES})")
         if self.sampling not in SAMPLING:
             raise ValueError(f"unknown sampling {self.sampling!r} (want one of {SAMPLING})")
-        if self.remat and self.engine == "flax":
-            raise ValueError("remat needs engine 'xla' or 'pallas' (module-level remat "
-                             "is not ported)")
         self.device = resolve_device(self.device)
         self.seed = seed
         self.steps_per_epoch = max(1, steps_per_epoch)
-        self.unet = RDUNetT(self.base_filters, generator=torch.Generator().manual_seed(seed))
+        self.unet = RDUNetT(self.base_filters, generator=torch.Generator().manual_seed(seed),
+                            remat=self.remat)
         self.unet.to(self.device)
         if self.device.type == "cuda":
             self.unet.to(memory_format=torch.channels_last)
@@ -206,6 +205,18 @@ class DiffusionTrainer:
         mean_loss = float(torch.stack(losses).mean()) if losses else math.nan
         return state, mean_loss
 
+    def sample(self, state, noisy):
+        """The validation sampler (``sampling``) on a batch of noisy images
+        in [-1, 1], in ``compute_dtype``, without a graph (JAX's
+        ``_jit_sample``)."""
+        sample = (self.diffusion.direct_sampling if self.sampling == "direct"
+                  else self.diffusion.improved_sampling)
+        with torch.no_grad():
+            kw = {} if self.kernel_weights_fn is None else {
+                "kernel_weights": self.kernel_weights_fn(state.params)}
+            return sample(lambda x, t: self.unet_apply(state.params, x, t, **kw),
+                          self.put(noisy).to(self.compute_dtype))
+
     def validate(self, state, val_loader, epoch: int = 0):
         """The validation sampler on the first (noisy, clean) batch of
         ``val_loader`` (diffusion_RDUnet.py:137-159): returns
@@ -215,14 +226,9 @@ class DiffusionTrainer:
             noisy, clean = next(iter(val_loader))
         except StopIteration:
             return math.nan, None
-        sample = (self.diffusion.direct_sampling if self.sampling == "direct"
-                  else self.diffusion.improved_sampling)
         noisy, clean = self.put(noisy), self.put(clean)
+        denoised = self.sample(state, noisy)
         with torch.no_grad():
-            kw = {} if self.kernel_weights_fn is None else {
-                "kernel_weights": self.kernel_weights_fn(state.params)}
-            denoised = sample(lambda x, t: self.unet_apply(state.params, x, t, **kw),
-                              noisy.to(self.compute_dtype))
             vloss = float(combined_loss(denoised.float(), clean.float()))
         if self.writer is not None:
             self.writer.add_scalar("Loss/validation", vloss, epoch + 1)
@@ -315,7 +321,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="U-Net engine: flax (the modules), xla (eager engine), "
                         "pallas (the block kernel, recompute backward)")
     p.add_argument("--remat", action="store_true",
-                   help="recompute the eager engines' blocks in the backward")
+                   help="recompute the DenoisingBlocks in the backward (every engine)")
     p.add_argument("--param-sharding", type=str, default="replicated", choices=["replicated"],
                    help="one card: parameters are not sharded")
     p.add_argument("--device-data", action="store_true",

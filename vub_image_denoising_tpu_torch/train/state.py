@@ -5,8 +5,10 @@
 JAX's state is an immutable pytree replaced every step; here the params are
 the model's own parameters, updated in place by the optimizer.  A ``.pth``
 the port writes carries ``optimizer_state_dict`` and ``scheduler_state_dict``
-(the reference's keys), so it resumes exactly; the JAX package's orbax
-sidecar has no counterpart.
+(the reference's keys), so it resumes exactly; one the JAX package writes
+carries its optax state as ``optax_leaves``, which resumes with Adam's
+moments and count (``optax_leaves_to_optimizer_state``); the JAX package's
+orbax sidecar has no counterpart.
 """
 
 import dataclasses
@@ -14,6 +16,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..utils.checkpoint import optax_leaves_to_optimizer_state
 from .schedules import clip_by_global_norm_, fast_forward_scheduler
 
 
@@ -54,14 +57,26 @@ class TrainState:
         """The resume ladder for a ``.pth`` payload (the params are loaded by
         the caller): (1) a file the port wrote (``optimizer_state_dict``
         filled): the optimizer and scheduler state exactly, and the step
-        count; (2) a file the JAX package or the reference wrote (an empty
-        ``optimizer_state_dict``, with or without ``optax_leaves``, or none):
-        the LR schedule moved to ``resume_step``, Adam's moments and step
-        fresh (``fast_forward_scheduler``)."""
+        count; (2) a file the JAX package wrote (``optax_leaves``): the
+        optimizer's moments and count, and the LR schedule at the position
+        the leaves hold, as JAX's ``safe_to_optax_state`` restores them, and
+        the step count ``resume_step``; (3) a file the reference wrote (an
+        empty ``optimizer_state_dict``, or none): the LR schedule moved to
+        ``resume_step``, Adam's moments and step fresh
+        (``fast_forward_scheduler``)."""
         if payload and payload.get("optimizer_state_dict"):
             self.optimizer.load_state_dict(payload["optimizer_state_dict"])
             self.scheduler.load_state_dict(payload["scheduler_state_dict"])
             self.step = self.scheduler.last_epoch
+        elif payload and "optax_leaves" in payload:
+            choice = ("adadelta" if isinstance(self.optimizer, torch.optim.Adadelta)
+                      else "adam")
+            state, schedule_count = optax_leaves_to_optimizer_state(
+                payload["optax_leaves"], self.params, choice)
+            sd = self.optimizer.state_dict()
+            self.optimizer.load_state_dict({**sd, "state": state})
+            fast_forward_scheduler(self.scheduler, schedule_count)
+            self.step = resume_step
         elif resume_step > 0:
             fast_forward_scheduler(self.scheduler, resume_step)
             self.step = resume_step

@@ -19,6 +19,10 @@ given as numpy arrays, across to the port:
   as ``SpectralNorm_i/{layer}/kernel/u``, shape (1, cout)): -> the layer's
   ``weight_u``, shape (cout,); flax's ``sigma`` is recomputed by every
   forward and is not carried.
+
+``optax_leaves_to_optimizer_state`` carries the optimizer state the JAX
+trainers write (``optax_leaves``, the flattened optax state of
+``optax_state_to_safe``) into a torch optimizer's ``state``.
 """
 
 import os
@@ -84,6 +88,73 @@ def params_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 out[key[: -len("running_var")] + "num_batches_tracked"] = torch.zeros(
                     (), dtype=torch.long)
     return out
+
+
+def _jax_names(key: str, params: Mapping[str, torch.Tensor]):
+    """The JAX param path of state_dict key ``key`` below the model's
+    ``core`` level: ``weight`` is a conv or dense ``kernel``, a norm's
+    ``scale`` or a PReLU's ``alpha``."""
+    *mod, leaf = key.split(".")
+    if leaf == "weight":
+        if params[key].dim() > 1:
+            leaf = "kernel"
+        else:
+            leaf = "scale" if ".".join(mod + ["bias"]) in params else "alpha"
+    return tuple(mod + [leaf])
+
+
+# optax's state leaves per optimizer choice, as ``make_optimizer`` chains
+# them behind clip_by_global_norm (whose state, like add_decayed_weights',
+# has no leaves): [per-param moments ...] and their torch names, and
+# whether a leading Adam count precedes them; the schedule's count is last
+_OPTAX_MOMENTS = {"adam": (("exp_avg", "exp_avg_sq"), True),
+                  "adamw": (("exp_avg", "exp_avg_sq"), True),
+                  "adadelta": (("square_avg", "acc_delta"), False)}
+
+
+def optax_leaves_to_optimizer_state(leaves, params: Mapping[str, torch.Tensor], choice: str):
+    """The torch optimizer ``state`` (param index -> tensors) and the LR
+    schedule's position held in ``leaves``, the ``optax_leaves`` of a
+    checkpoint the JAX trainers wrote with optimizer ``choice``.
+
+    ``params`` are the model's parameters in the optimizer's order.  The
+    leaves follow optax's chain: for adam and adamw ``[count, mu..., nu...,
+    schedule count]`` (``ScaleByAdamState``, ``ScaleByScheduleState``), for
+    adadelta ``[e_g..., e_x..., schedule count]``; mu, nu, e_g and e_x hold
+    one leaf per parameter in the JAX tree's order (dict keys sorted at
+    every level) and layout, which are mapped back to the torch names and
+    layouts of ``params_to_state_dict``.  Adam's count is torch's ``step``
+    (the same bias correction); adadelta's step is the schedule's count.
+    Raises ValueError on a leaf-count or shape mismatch, as
+    ``safe_to_optax_state`` does."""
+    if choice not in _OPTAX_MOMENTS:
+        raise ValueError(f"no optax state mapping for optimizer {choice!r}")
+    (first, second), has_count = _OPTAX_MOMENTS[choice]
+    keys = list(params)
+    n = len(keys)
+    want = 2 * n + 1 + int(has_count)
+    if len(leaves) != want:
+        raise ValueError(f"checkpointed optax state has {len(leaves)} leaves but the "
+                         f"{choice} optimizer over {n} params expects {want} — optimizer "
+                         "configs differ")
+    leaves = [np.asarray(v) for v in leaves]
+    order = sorted(range(n), key=lambda i: _jax_names(keys[i], params))
+    moments = leaves[int(has_count):int(has_count) + 2 * n]
+    schedule_count = int(leaves[-1])
+    step = float(leaves[0]) if has_count else float(schedule_count)
+
+    def carried(leaf, i):
+        key, arr = _torch_key_and_array(list(_jax_names(keys[i], params)), leaf)
+        if key != keys[i] or tuple(arr.shape) != tuple(params[keys[i]].shape):
+            raise ValueError(f"optax leaf for {keys[i]!r} has shape {leaf.shape}, want the "
+                             f"JAX layout of {tuple(params[keys[i]].shape)}")
+        return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+    state = {i: {"step": torch.tensor(step, dtype=torch.float32)} for i in range(n)}
+    for j, i in enumerate(order):
+        state[i][first] = carried(moments[j], i)
+        state[i][second] = carried(moments[n + j], i)
+    return state, schedule_count
 
 
 def load_torch_payload(path: str, *, allow_pickle: bool = False):
