@@ -146,6 +146,24 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    launches per batch; one batch of 2 x 128^2 with BM3D on the card and on
    the CPU, the metric tables within COMPARE_PSNR_TOL / COMPARE_TOL.
 
+21. Export (``eval/export.py``): RDUNet-32 in f32 and bf16 and the T = 20
+   sampler of RDUNetT-32 at 256^2, from seeded weights: 14, 14 and 280
+   kernel-1 operator nodes in the programs; each artifact saved, then
+   loaded and called in a fresh process (``--export-worker``) at batch 8
+   and 3: 14 / 280 launches per call, all on the tensor cores, outputs
+   held to the module path on the card (SERVED_F32_TOL, the sampler
+   SERVED_SAMPLER_F32_TOL, bf16 BF16_REL_TOL * max|y|), times beside it.
+22. Two ranks on the one card (``--multirank-worker``, gloo: NCCL refuses
+   two ranks on one GPU): the supervised and diffusion "flax" SGD steps of
+   RDUNet(T)-32, 8 x 256^2, acc 4, f32, under replicated, fsdp and tp
+   against one process (STEP_RTOL / STEP_ATOL; sharded fraction > 0.5 for
+   fsdp and tp), ``--tile-parallel`` on 2048^2 (rtol 1e-4, atol 1e-5),
+   ``--tensor-parallel`` and the pipelined T = 20 sampler at S = 2,
+   microbatch 2 (1e-4), ``all_processes_mean``; kernel-1 launches and
+   times per rank beside one process's (two ranks share one card: no
+   speedup); then one nccl rank through ``denoise_cli --tensor-parallel``
+   with torchrun's environment.
+
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
 failure, and when CUDA or the port's package is missing.
@@ -2600,10 +2618,405 @@ def profile_sampler(torch):
     return out
 
 
+# Phase 21: ahead-of-time export (eval/export.py).  Each artifact is traced
+# on the card from seeded weights, saved, and loaded and called in a fresh
+# process at both batches from the one file.
+EXPORT_CASES = (("rdunet_f32", "rdunet", False), ("rdunet_bf16", "rdunet", True),
+                ("sampler_f32", "diffusion", False))
+EXPORT_BATCHES = (8, 3)
+# Phase 22: two ranks on the one card (gloo; NCCL refuses two ranks on one
+# GPU): the trainers' steps under each param sharding, tiles, tensor
+# parallelism, the pipelined sampler.
+MULTI_WORLD, TILE_SIDE, PP_MICROBATCH = 2, 2048, 2
+PARAM_SHARDINGS = ("replicated", "fsdp", "tp")
+TILE_RTOL, TILE_ATOL = 1e-4, 1e-5  # tests/test_tiles_and_tb.py:30
+MULTI_TOL = 1e-4                   # TP forward, pipelined sampler (__graft_entry__.py:159,180)
+
+
+def seeded_checkpoints(torch, tmp):
+    """RDUNet-32 and RDUNetT-32 (``unet.`` keys) from seed 0, as .pth files."""
+    from vub_image_denoising_tpu_torch.models import RDUNet, RDUNetT
+    from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
+
+    cks = {"rdunet": os.path.join(tmp, "rdunet32.pth"),
+           "diffusion": os.path.join(tmp, "rdunet_t32.pth")}
+    save_pth(cks["rdunet"], RDUNet(3, BASE_FILTERS,
+                                   generator=torch.Generator().manual_seed(0)).state_dict())
+    save_pth(cks["diffusion"], RDUNetT(BASE_FILTERS, generator=torch.Generator().manual_seed(0))
+             .state_dict(), prefix="unet.")
+    return cks
+
+
+def max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def export_main_path(torch, device):
+    """Phase 21 (module docstring): the artifacts of EXPORT_CASES against the
+    module path on the card; returns the records."""
+    import numpy as np
+
+    from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
+    from vub_image_denoising_tpu_torch.eval.export import (build_exported, kernel_nodes,
+                                                           save_exported)
+
+    phase_t0 = time.perf_counter()
+    out = {"cases": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        cks = seeded_checkpoints(torch, tmp)
+        rng = np.random.RandomState(21)
+        xs = {b: torch.from_numpy(rng.uniform(-1, 1, (b, IMAGE_SIZE, IMAGE_SIZE, 3))
+                                  .astype(np.float32)) for b in EXPORT_BATCHES}
+        torch.save(xs, os.path.join(tmp, "inputs.pt"))
+        refs = {}
+        for name, arch, bf16 in EXPORT_CASES:
+            t0 = time.perf_counter()
+            programs = build_exported(cks[arch], arch, BASE_FILTERS, TIMESTEPS, size=IMAGE_SIZE,
+                                      bf16=bf16, platforms=(device.type,))
+            export_sec = time.perf_counter() - t0
+            nodes = kernel_nodes(programs[device.type])
+            path = save_exported(programs, os.path.join(tmp, f"{name}.pt2"))
+            want = 14 * (TIMESTEPS if arch == "diffusion" else 1)
+            forward, _ = build_apply(cks[arch], arch, BASE_FILTERS, TIMESTEPS, bf16=bf16,
+                                     device=device)
+            x8 = xs[8].to(device)
+            refs[name] = {b: forward(x.to(device)).cpu() for b, x in xs.items()}
+            ms = cuda_ms(torch, lambda: forward(x8), 2 if arch == "diffusion" else 10)
+            out["cases"][name] = {"export_sec": export_sec, "kernel_nodes": nodes,
+                                  "artifact_mb": os.path.getsize(path) / 1e6, "module_ms": ms}
+            print(f"export {name}: traced in {export_sec:.1f} s, {nodes} kernel-1 operator nodes "
+                  f"(want {want}), {os.path.getsize(path) / 1e6:.1f} MB; module path {ms:.3f} ms "
+                  f"per batch of 8", flush=True)
+            if nodes != want:
+                fail(f"export {name}: {nodes} kernel operator nodes, want {want}")
+        # a fresh process loads each artifact from its file and calls it
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--export-worker", tmp],
+                              capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            fail(f"the export worker failed:\n{proc.stderr[-4000:]}")
+        got = torch.load(os.path.join(tmp, "export_results.pt"))
+        for name, arch, bf16 in EXPORT_CASES:
+            rec, res = out["cases"][name], got[name]
+            per_call = 14 * (TIMESTEPS if arch == "diffusion" else 1)
+            errs = {b: max_err(res["y"][b], refs[name][b]) for b in EXPORT_BATCHES}
+            scale = refs[name][8].abs().max().item()
+            tol = (BF16_REL_TOL * scale if bf16 else
+                   SERVED_SAMPLER_F32_TOL if arch == "diffusion" else SERVED_F32_TOL)
+            rec.update({"artifact_ms": res["ms"], "load_sec": res["load_sec"],
+                        "launches": res["launches"], "max_abs_err": max(errs.values()),
+                        "tol": tol})
+            print(f"export {name} artifact in a fresh process: loaded in {res['load_sec']:.1f} s, "
+                  f"{res['ms']:.3f} ms per batch of 8 (module path {rec['module_ms']:.3f} ms); "
+                  f"launches per call {res['launches']} (want {per_call}, all on the tensor "
+                  f"cores); max_abs_err vs the module path {errs} (tol {tol:.3g})", flush=True)
+            if any(v != {"all": per_call, "tc": per_call} for v in res["launches"].values()):
+                fail(f"export {name}: launches per call {res['launches']}, want {per_call}")
+            if any(tuple(res["y"][b].shape) != (b, IMAGE_SIZE, IMAGE_SIZE, 3)
+                   for b in EXPORT_BATCHES) or max(errs.values()) > tol:
+                fail(f"export {name}: the artifact's output disagrees with the module path")
+    out["launches"] = sum(sum(v["all"] for v in rec["launches"].values())
+                          for rec in out["cases"].values())
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"export phase: {out['phase_sec']:.1f} s", flush=True)
+    return out
+
+
+def export_worker(tmp):
+    """``--export-worker``: load each artifact of phase 21 in this fresh
+    process, call it at EXPORT_BATCHES, count the launches, time batch 8."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vub_image_denoising_tpu_torch import enable_strict_precision
+    from vub_image_denoising_tpu_torch.eval.export import load_exported
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as fb
+
+    enable_strict_precision()  # f32 convs without TF32, as build_apply sets it
+    xs = torch.load(os.path.join(tmp, "inputs.pt"))
+    results = {}
+    for name, arch, _ in EXPORT_CASES:
+        t0 = time.perf_counter()
+        fn = load_exported(os.path.join(tmp, f"{name}.pt2"))
+        load_sec = time.perf_counter() - t0
+        res = {"load_sec": load_sec, "y": {}, "launches": {}}
+        for b in EXPORT_BATCHES:
+            x = xs[b].cuda()
+            before, tc_before = fb.launches, fb.tc_launches
+            res["y"][b] = fn(x).cpu()
+            res["launches"][b] = {"all": fb.launches - before, "tc": fb.tc_launches - tc_before}
+        x8 = xs[8].cuda()
+        res["ms"] = cuda_ms(torch, lambda: fn(x8), 2 if arch == "diffusion" else 10)
+        results[name] = res
+        print(f"export worker {name}: loaded, called at {EXPORT_BATCHES}", flush=True)
+    torch.save(results, os.path.join(tmp, "export_results.pt"))
+
+
+class _SGD:
+    """An optimizer spec for ``TrainState.create``: SGD(1e-2), a flat
+    schedule, the trainer's clip (the recipe of ``compare_with_xla``)."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    def build(self, leaves):
+        import torch
+
+        opt = torch.optim.SGD(list(leaves), lr=1e-2)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0)
+
+
+def multi_device_trainer(torch, kind, mode, cks, device):
+    """The phase-22 trainer of ``kind`` under ``param_sharding=mode`` on
+    RDUNet(T)-32 from seed 0, engine "flax", acc 4, f32."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.train import DiffusionTrainer, SupervisedTrainer
+    from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
+
+    if kind == "supervised":
+        model, _ = load_pth(cks["rdunet"], RDUNet(3, BASE_FILTERS))
+        trainer = SupervisedTrainer(model, accumulation_steps=ACCUMULATION, engine="flax",
+                                    device=device, param_sharding=mode)
+        return trainer, trainer.init(steps_per_epoch=TRAIN_STEPS), model
+    trainer = DiffusionTrainer(base_filters=BASE_FILTERS, timesteps=TIMESTEPS,
+                               accumulation_steps=ACCUMULATION, engine="flax", device=device,
+                               param_sharding=mode)
+    state = trainer.init(steps_per_epoch=TRAIN_STEPS, seed=0)
+    return trainer, state, trainer.unet
+
+
+def multi_device_sgd_step(torch, kind, mode, cks, device, batch, rows=None):
+    """One accumulate -> clip -> SGD(1e-2) step of the phase-22 trainer on
+    ``batch`` (this rank's ``rows`` of it, where the batch is split);
+    returns (params after, global loss, ms, kernel-1 launches, sharded
+    fraction)."""
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as fb
+    from vub_image_denoising_tpu_torch.parallel.fsdp import sharded_fraction
+    from vub_image_denoising_tpu_torch.train import TrainState
+
+    trainer, state, model = multi_device_trainer(torch, kind, mode, cks, device)
+    sgd = TrainState.create(state.params, _SGD(trainer.clip_norm), state.parallel)
+    noisy, clean = (t.to(device) for t in batch)
+    if rows is not None and mode != "tp":
+        noisy, clean = noisy[rows[0]:rows[1]], clean[rows[0]:rows[1]]
+    noisy = noisy.contiguous(memory_format=torch.channels_last)
+    clean = clean.contiguous(memory_format=torch.channels_last)
+    args = (sgd, noisy, clean) if kind == "supervised" else (sgd, trainer.generator, noisy, clean)
+    torch.cuda.synchronize()
+    before = fb.launches
+    t0 = time.perf_counter()
+    _, loss = trainer._step(*args)
+    loss = float(trainer.global_mean(loss))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return params, loss, ms, fb.launches - before, sharded_fraction(state)
+
+
+def multi_device_main_path(torch, device):
+    """Phase 22 (module docstring): two gloo ranks on the card against one
+    process, and one nccl rank through the CLI's init path."""
+    import numpy as np
+
+    phase_t0 = time.perf_counter()
+    out = {"world": MULTI_WORLD, "backend": "gloo (two ranks share cuda:0)"}
+    with tempfile.TemporaryDirectory() as tmp:
+        cks = seeded_checkpoints(torch, tmp)
+        gen = torch.Generator().manual_seed(22)
+        clean = torch.rand(TRAIN_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE, generator=gen) * 2 - 1
+        batch = (clean + SIGMA * torch.randn(clean.shape, generator=gen), clean)
+        rng = np.random.RandomState(22)
+        inp = {"batch": batch, "cks": cks,
+               "tile": (rng.uniform(-1, 1, (TILE_SIDE, TILE_SIDE, 3)) * 0.5).astype(np.float32),
+               "x8": rng.uniform(-1, 1, (8, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)}
+        torch.save(inp, os.path.join(tmp, "inputs.pt"))
+
+        # one process: the references and their times
+        refs, one = {}, {}
+        for kind in ("supervised", "diffusion"):
+            refs[kind] = multi_device_sgd_step(torch, kind, "replicated", cks, device, batch)
+            one[f"{kind}_step_ms"] = refs[kind][2]
+        from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
+
+        forward, _ = build_apply(cks["rdunet"], "rdunet", BASE_FILTERS, device=device)
+        tile_x = torch.from_numpy(inp["tile"])[None].to(device)
+        x8 = torch.from_numpy(inp["x8"]).to(device)
+        refs["tiles"] = forward(tile_x)[0].cpu().numpy()
+        one["tiles_ms"] = cuda_ms(torch, lambda: forward(tile_x), 2)
+        refs["tp_forward"] = forward(x8).cpu().numpy()
+        one["forward_ms"] = cuda_ms(torch, lambda: forward(x8), 5)
+        sampler, _ = build_apply(cks["diffusion"], "diffusion", BASE_FILTERS, TIMESTEPS,
+                                 device=device)
+        refs["pipeline"] = sampler(x8).cpu().numpy()
+        one["sampler_ms"] = cuda_ms(torch, lambda: sampler(x8), 1)
+        out["one_process"] = one
+
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multirank-worker",
+                                   str(r), str(MULTI_WORLD), port, tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(MULTI_WORLD)]
+        try:
+            logs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, log in enumerate(logs):
+            print("".join(f"[rank {r}] {line}\n" for line in log.splitlines()
+                          if not line.startswith("[W")), end="", flush=True)
+        if any(p.returncode != 0 for p in procs):
+            fail(f"multi-device ranks failed (rc {[p.returncode for p in procs]})")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)  # the ranks wrote them
+                 for r in range(MULTI_WORLD)]
+
+        per_rank = []
+        for r, res in enumerate(ranks):
+            rec = {"launches": res["launches"], "ms": res["ms"], "host_copies": res["host_copies"],
+                   "sharded_fraction": res["fraction"]}
+            for kind in ("supervised", "diffusion"):
+                ref_params, ref_loss = refs[kind][0], refs[kind][1]
+                for mode in PARAM_SHARDINGS:
+                    params, loss = res["params"][f"{kind}_{mode}"], res["loss"][f"{kind}_{mode}"]
+                    worst = max(((v - ref_params[k]).abs()
+                                 / (STEP_ATOL + STEP_RTOL * ref_params[k].abs())).max().item()
+                                for k, v in params.items())
+                    rec[f"{kind}_{mode}_worst"] = worst
+                    print(f"multi-device rank {r} {kind} {mode} SGD step: loss {loss:.7f} vs one "
+                          f"process {ref_loss:.7f}; params worst |diff| / (atol {STEP_ATOL} + "
+                          f"rtol {STEP_RTOL}*|p|) = {worst:.3f} (must be <= 1); sharded fraction "
+                          f"{res['fraction'][f'{kind}_{mode}']:.3f}; "
+                          f"{res['launches'][f'{kind}_{mode}']} kernel-1 launches", flush=True)
+                    if (worst > 1 or abs(loss - ref_loss) > LOSS_RTOL * abs(ref_loss)
+                            or res["launches"][f"{kind}_{mode}"] != 14 * ACCUMULATION):
+                        fail(f"rank {r}: the {kind} step under {mode} disagrees with one process")
+                    if mode != "replicated" and res["fraction"][f"{kind}_{mode}"] <= 0.5:
+                        fail(f"rank {r}: {mode} left most params replicated")
+            checks = (("tiles", TILE_RTOL, TILE_ATOL), ("tp_forward", MULTI_TOL, MULTI_TOL),
+                      ("pipeline", MULTI_TOL, MULTI_TOL))
+            for name, rtol, atol in checks:
+                got = res["out"][name]
+                err = float(np.abs(got - refs[name]).max())
+                rec[f"{name}_max_abs_err"] = err
+                ok = got.shape == refs[name].shape and np.allclose(got, refs[name], rtol=rtol,
+                                                                   atol=atol)
+                print(f"multi-device rank {r} {name}: max_abs_err {err:.3e} vs one process "
+                      f"(rtol {rtol}, atol {atol}); {res['launches'][name]} kernel-1 launches, "
+                      f"{res['ms'][name]:.1f} ms", flush=True)
+                if not ok:
+                    fail(f"rank {r}: {name} disagrees with one process")
+            if abs(res["mean"] - 0.5) > 1e-12 or res["host_copies"] == 0:
+                fail(f"rank {r}: all_processes_mean {res['mean']}, host copies "
+                     f"{res['host_copies']}")
+            per_rank.append(rec)
+        out["ranks"] = per_rank
+        out["cli_nccl"] = nccl_cli_check(torch, tmp, cks)
+    out["launches"] = sum(sum(rec["launches"].values()) for rec in out["ranks"])
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"multi-device phase: {out['phase_sec']:.1f} s (two ranks share one card: their "
+          "times are not a speedup)", flush=True)
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+def nccl_cli_check(torch, tmp, cks):
+    """One nccl rank through denoise_cli's init path (torchrun's environment,
+    world 1, --tensor-parallel) against the CLI without a group: the PNGs
+    within 1 level."""
+    import numpy as np
+    from PIL import Image
+
+    img = os.path.join(tmp, "cli_in.png")
+    Image.fromarray(np.random.RandomState(3).randint(0, 256, (IMAGE_SIZE, IMAGE_SIZE, 3),
+                                                     np.uint8)).save(img)
+    outs = {}
+    for name, extra_env, flags in (("plain", {}, []),
+                                   ("nccl", {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": free_port(),
+                                             "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"},
+                                    ["--tensor-parallel"])):
+        outs[name] = os.path.join(tmp, f"cli_{name}.png")
+        proc = subprocess.run(
+            [sys.executable, "-m", "vub_image_denoising_tpu_torch.eval.denoise_cli",
+             "--checkpoint", cks["rdunet"], "--input", img, "--output", outs[name], *flags],
+            capture_output=True, text=True, timeout=600, cwd=ROOT, env={**os.environ, **extra_env})
+        if proc.returncode != 0:
+            fail(f"denoise_cli ({name}) failed:\n{proc.stderr[-3000:]}")
+    a, b = (np.asarray(Image.open(outs[k]), np.int16) for k in ("plain", "nccl"))
+    diff = int(np.abs(a - b).max())
+    print(f"denoise_cli --tensor-parallel on one nccl rank (torchrun's environment) vs without a "
+          f"group: max diff {diff} levels (tol 1)", flush=True)
+    if diff > 1:
+        fail("the nccl CLI run disagrees with the plain one")
+    return {"max_diff_levels": diff}
+
+
+def multirank_worker(rank, world, port, tmp):
+    """``--multirank-worker``: one of phase 22's ranks (gloo, on cuda:0)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vub_image_denoising_tpu_torch import enable_strict_precision
+    from vub_image_denoising_tpu_torch.eval.denoise_cli import build_denoiser
+    from vub_image_denoising_tpu_torch.eval.sidd_cli import load_sampler
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as fb
+    from vub_image_denoising_tpu_torch.parallel import mesh as pm
+
+    enable_strict_precision()
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    pm.init_distributed("gloo", f"tcp://127.0.0.1:{port}", world, rank)
+    inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)  # written by the parent
+    cks = inp["cks"]
+    res = {"params": {}, "loss": {}, "launches": {}, "ms": {}, "fraction": {}, "out": {}}
+    lo = rank * TRAIN_BATCH // world
+    for kind in ("supervised", "diffusion"):
+        for mode in PARAM_SHARDINGS:
+            key = f"{kind}_{mode}"
+            (res["params"][key], res["loss"][key], res["ms"][key], res["launches"][key],
+             res["fraction"][key]) = multi_device_sgd_step(
+                torch, kind, mode, cks, device, inp["batch"], (lo, lo + TRAIN_BATCH // world))
+            print(f"{key} step: {res['ms'][key]:.1f} ms", flush=True)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        before = fb.launches
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        res["ms"][name] = (time.perf_counter() - t0) * 1e3
+        res["launches"][name] = fb.launches - before
+        res["out"][name] = np.asarray(y.cpu() if torch.is_tensor(y) else y)
+
+    tiles = build_denoiser(cks["rdunet"], "rdunet", BASE_FILTERS, device=device, tile_parallel=True)
+    timed("tiles", lambda: tiles(inp["tile"]))
+    tp = build_denoiser(cks["rdunet"], "rdunet", BASE_FILTERS, device=device, tensor_parallel=True,
+                        batched=True)
+    timed("tp_forward", lambda: tp(inp["x8"]))
+    sampler = load_sampler(cks["diffusion"], BASE_FILTERS, TIMESTEPS, device=device,
+                           pipeline_parallel=True, pipeline_microbatch=PP_MICROBATCH)
+    timed("pipeline", lambda: sampler(torch.from_numpy(inp["x8"]).to(device)))
+    res["mean"] = float(pm.all_processes_mean(float(rank)))
+    res["host_copies"] = pm.host_copies()
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    pm.barrier()
+    torch.distributed.destroy_process_group()
+
+
 def main():
     import torch
 
     args = sys.argv[1:]
+    if args[:1] == ["--export-worker"] and len(args) == 2:
+        return export_worker(args[1])
+    if args[:1] == ["--multirank-worker"] and len(args) == 5:
+        return multirank_worker(int(args[1]), int(args[2]), args[3], args[4])
     if args not in ([], ["--profile"]):
         fail(f"usage: python3 chip_smoke.py [--profile]  (got {args})")
 
@@ -2680,6 +3093,10 @@ def main():
     phase_sec[20] = time.perf_counter() - phase_t0 - sum(phase_sec.values())
     print("phases 16-20: " + ", ".join(f"{k}: {v:.1f} s" for k, v in phase_sec.items())
           + f"; {sum(phase_sec.values()):.1f} s together", flush=True)
+    export = export_main_path(torch, device)
+    phase_sec[21] = export["phase_sec"]
+    multi = multi_device_main_path(torch, device)
+    phase_sec[22] = multi["phase_sec"]
     remat_launches = {k: sum(r["tc"] for r in v["launches"]) for k, v in remat.items()}
     search_launches = {"run_search": sum(t["launches"]["all"] for t in search["trials"]),
                        "fixed": sum(t["launches"]["all"] for t in search["fixed"])}
@@ -2761,7 +3178,8 @@ def main():
                          + supervised128["launches"]["tc"]
                          + partial["rdunet152"]["launches"]["all"]
                          + sum(remat_launches.values()) + sum(search_launches.values())
-                         + comparison["launches"]["all"]),
+                         + comparison["launches"]["all"] + export["launches"]
+                         + multi["launches"]),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -2778,6 +3196,8 @@ def main():
                                  "rdunet152": partial["rdunet152"]["launches"],
                                  "remat": remat_launches, "search": search_launches,
                                  "compare": comparison["launches"],
+                                 "export": {k: v["launches"] for k, v in export["cases"].items()},
+                                 "multi_device": [r["launches"] for r in multi["ranks"]],
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
             "train_step_ms": step_ms,
@@ -2800,6 +3220,8 @@ def main():
             "remat": remat,
             "search": search,
             "compare": comparison,
+            "export": export,
+            "multi_device": multi,
             "phase_sec": phase_sec,
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc",
                                                   "fused_block_wide_tc")},

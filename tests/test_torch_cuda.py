@@ -752,3 +752,128 @@ def test_cuda_remat_launch_counts(cuda, remat, per_micro_batch):
     assert bool(torch.isfinite(loss))
     assert (counter.launches - before[0], counter.tc_launches - before[1]) == (
         2 * per_micro_batch, 2 * per_micro_batch)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_exported_program_launches_kernel_1(cuda, tmp_path, dtype):
+    """``eval/export.py`` on the card: the program holds 14 kernel-1 operator
+    nodes, and the artifact, saved and loaded, launches kernel 1 14 times per
+    call (all on the tensor cores) at two batches, within the f32 / bf16
+    bound of the module path."""
+    from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
+    from vub_image_denoising_tpu_torch.eval.export import (build_exported, kernel_nodes,
+                                                           load_exported, save_exported)
+    from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
+
+    ck = str(tmp_path / "ck.pth")
+    save_pth(ck, RDUNet(3, 32, generator=torch.Generator().manual_seed(0)).state_dict())
+    bf16 = dtype == "bfloat16"
+    programs = build_exported(ck, base_filters=32, size=32, bf16=bf16)
+    assert kernel_nodes(programs["cuda"]) == 14
+    fn = load_exported(save_exported(programs, str(tmp_path / "m.pt2")))
+    forward, _ = build_apply(ck, base_filters=32, bf16=bf16)
+    counter = fb.fused_denoising_block
+    for batch in (3, 1):
+        x = torch.rand(batch, 32, 32, 3, generator=torch.Generator().manual_seed(batch))
+        x = (x * 2 - 1).to(cuda)
+        before = (counter.launches, counter.tc_launches)
+        y = fn(x)
+        torch.cuda.synchronize()
+        assert (counter.launches - before[0], counter.tc_launches - before[1]) == (14, 14)
+        want = forward(x)
+        tol = 2e-2 * want.abs().max().item() if bf16 else 2e-4
+        assert y.shape == x.shape and (y - want).abs().max().item() <= tol
+
+
+_TWO_RANKS = r"""
+import sys
+import torch
+rank, port, tmp, root = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+sys.path.insert(0, root)
+from vub_image_denoising_tpu_torch import enable_strict_precision
+from vub_image_denoising_tpu_torch.models import RDUNet
+from vub_image_denoising_tpu_torch.ops import fused_block as fb
+from vub_image_denoising_tpu_torch.parallel import mesh as pm
+from vub_image_denoising_tpu_torch.train import SupervisedTrainer, TrainState
+
+
+class SGD:
+    clip_norm = 1.0
+
+    def build(self, leaves):
+        opt = torch.optim.SGD(list(leaves), lr=1e-2)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0)
+
+
+enable_strict_precision()
+pm.init_distributed("gloo", f"tcp://127.0.0.1:{port}", 2, rank)
+inp = torch.load(f"{tmp}/inputs.pt")
+model = RDUNet(3, 32)
+model.load_state_dict(inp["sd"])
+trainer = SupervisedTrainer(model, accumulation_steps=2, param_sharding=sys.argv[5])
+state = trainer.init(steps_per_epoch=1)
+sgd = TrainState.create(state.params, SGD(), state.parallel)
+rows = (lambda t: t) if sys.argv[5] == "tp" else (lambda t: pm.shard_batch(t, trainer.mesh))
+before = fb.fused_denoising_block.launches
+_, loss = trainer._step(sgd, rows(inp["x"]).cuda(), rows(inp["y"]).cuda())
+loss = trainer.global_mean(loss)
+torch.cuda.synchronize()
+torch.save({"loss": float(loss), "launches": fb.fused_denoising_block.launches - before,
+            "copies": pm.host_copies(), "params": {k: v.cpu() for k, v in model.state_dict().items()}},
+           f"{tmp}/rank{rank}.pt")
+pm.barrier()
+"""
+
+
+@pytest.mark.parametrize("param_sharding", ["replicated", "fsdp", "tp"])
+def test_cuda_two_gloo_ranks_share_the_card(cuda, tmp_path, param_sharding):
+    """Two ranks on cuda:0 over gloo (whose collectives take the counted host
+    copy): an accumulate -> clip 1.0 -> SGD(1e-2) step of RDUNet-32 on 4 x
+    32^2, accumulation 2, under each param sharding; each rank launches
+    kernel 1 14 times per micro-batch and ends with the one-process loss
+    (rtol 1e-5) and params (rtol 1e-4, atol 1e-6)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from vub_image_denoising_tpu_torch.train import SupervisedTrainer, TrainState
+
+    class SGD:
+        clip_norm = 1.0
+
+        def build(self, leaves):
+            opt = torch.optim.SGD(list(leaves), lr=1e-2)
+            return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0)
+
+    gen = torch.Generator().manual_seed(5)
+    inp = {"sd": RDUNet(3, 32, generator=gen).state_dict(),
+           "x": torch.rand(4, 3, 32, 32, generator=gen) * 2 - 1,
+           "y": torch.rand(4, 3, 32, 32, generator=gen) * 2 - 1}
+    torch.save(inp, tmp_path / "inputs.pt")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r), port, str(tmp_path),
+                               root, param_sharding], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), logs
+    model = RDUNet(3, 32)
+    model.load_state_dict(inp["sd"])
+    trainer = SupervisedTrainer(model, accumulation_steps=2)
+    state = trainer.init(steps_per_epoch=1)
+    _, loss = trainer._step(TrainState.create(state.params, SGD()), trainer.put(inp["x"]),
+                            trainer.put(inp["y"]))
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert got["launches"] == 28 and got["copies"] > 0
+        assert got["loss"] == pytest.approx(float(loss), rel=1e-5)
+        for k, v in want.items():
+            torch.testing.assert_close(got["params"][k], v, rtol=1e-4, atol=1e-6, msg=k)

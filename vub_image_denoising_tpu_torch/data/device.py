@@ -149,3 +149,32 @@ def normalize_pair(generator, noisy_u8, clean_u8, augment=False, flips=None, ang
         noisy_u8, clean_u8 = augment_pair(generator, noisy_u8, clean_u8, flips=flips,
                                           angles=angles)
     return _nchw(normalize_u8(noisy_u8)), _nchw(normalize_u8(clean_u8))
+
+
+def rank_rows(n: int, mesh=None):
+    """(lo, hi): this rank's rows of a batch of ``n`` split over ``mesh``'s
+    data axis, the batch first cut to a multiple of the axis size (JAX's
+    multi-process tail policy); (0, n) with one rank.  An empty range when
+    the batch is smaller than the axis."""
+    k = 1 if mesh is None else mesh.size("data")
+    if k == 1:
+        return 0, n
+    per = n // k
+    i = mesh.index("data")
+    return i * per, (i + 1) * per
+
+
+def transform_rows(transform, generator, local, lo: int, hi: int, n: int, aux=()):
+    """``transform(generator, *batch, *aux)`` of a global batch of ``n`` rows
+    of which this rank fetched rows ``lo:hi`` (``local``): the others are
+    zeros, so every draw is made for the whole batch, as one rank makes it;
+    returns this rank's rows of each output."""
+    if (lo, hi) == (0, n):
+        return transform(generator, *local, *aux)
+    full = []
+    for x in local:
+        z = x.new_zeros((n,) + tuple(x.shape[1:]))
+        z[lo:hi] = x
+        full.append(z)
+    out = transform(generator, *full, *aux)
+    return tuple(y[lo:hi] for y in out) if isinstance(out, tuple) else out[lo:hi]

@@ -16,8 +16,12 @@ In place of JAX's ``key``, the transforms' random stream comes from
 ``seed`` and the loader's ``split`` (0 train, 1 validation; JAX's
 ``random.split(key)``): each batch's generator is
 ``fold_generator(device, (seed, split), epoch, step)``.  In place of
-``sharding``, ``device`` (the card unless ``device="cpu"``); a loader feeds
-one device.
+``sharding``, ``device`` (the card unless ``device="cpu"``) and ``mesh``
+(``parallel.mesh``): a loader feeds its rank's device.  Over several ranks
+each rank fetches only its rows of every global batch
+(``data.device.rank_rows``, as JAX's ``local_batch_rows`` path) and runs the
+transform's draws for the whole batch (``transform_rows``), so its rows are
+those one rank would give.
 """
 
 import collections
@@ -28,7 +32,8 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .device import degrade_and_normalize, fold_generator, normalize_pair
+from .device import (degrade_and_normalize, fold_generator, normalize_pair, rank_rows,
+                     transform_rows)
 
 
 class Subset:
@@ -98,6 +103,9 @@ class PatchLoader:
       drop_last: drop the trailing partial batch.
       seed: the shuffle's and the transforms' seed.
       split: which of the seed's transform streams (0 train, 1 validation).
+      mesh: the ``parallel.mesh.Mesh`` whose data axis splits each batch
+        (this rank's rows only; a tail batch smaller than the axis is
+        skipped); None: one rank.
     """
 
     def __init__(
@@ -112,8 +120,10 @@ class PatchLoader:
         drop_last: bool = True,
         seed: int = 0,
         split: int = 0,
+        mesh=None,
     ):
         self.dataset = dataset
+        self.mesh = mesh
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.transform = transform
@@ -146,6 +156,8 @@ class PatchLoader:
         pin = self.device.type == "cuda"
 
         def fetch(batch_idx):
+            lo, hi = rank_rows(len(batch_idx), self.mesh)
+            batch_idx = batch_idx[lo:hi]
             if gather is not None:
                 # batched path: decode cache + native patch gather (one C call)
                 host = tuple(gather(batch_idx))
@@ -156,14 +168,16 @@ class PatchLoader:
             # pinned block alive until the copy that reads it has finished
             return tuple(x.pin_memory() for x in host) if pin else host
 
-        def to_device(host, step):
+        def to_device(host, step, n):
             batch = tuple(x.to(self.device, non_blocking=True) for x in host)
             if self.transform is not None:
-                batch = self.transform(fold_generator(self.device, self.stream, epoch, step),
-                                       *batch)
+                batch = transform_rows(self.transform,
+                                       fold_generator(self.device, self.stream, epoch, step),
+                                       batch, *rank_rows(n, self.mesh), n)
             return batch
 
-        work = list(self._batch_indices())
+        ranks = 1 if self.mesh is None else self.mesh.size("data")
+        work = [idx for idx in self._batch_indices() if len(idx) >= ranks]
         if not work:
             return
         with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
@@ -173,7 +187,7 @@ class PatchLoader:
             def submit_next():
                 if pending:
                     step, idx = pending.popleft()
-                    futures.append((step, pool.submit(fetch, idx)))
+                    futures.append((step, len(idx), pool.submit(fetch, idx)))
 
             # keep `prefetch` host fetches + device transfers in flight
             for _ in range(self.prefetch + 1):
@@ -181,8 +195,8 @@ class PatchLoader:
             device_queue = collections.deque()
             while futures or device_queue:
                 while futures and len(device_queue) <= self.prefetch:
-                    step, fut = futures.popleft()
-                    device_queue.append(to_device(fut.result(), step))
+                    step, n, fut = futures.popleft()
+                    device_queue.append(to_device(fut.result(), step, n))
                     submit_next()
                 yield device_queue.popleft()
 
@@ -200,17 +214,17 @@ def _split_subsets(dataset, validation_split, dataset_percentage, seed):
 
 
 def _split_loaders(dataset, batch_size, validation_split, dataset_percentage, num_workers,
-                   train_transform, val_transform, device, seed):
+                   train_transform, val_transform, device, seed, mesh=None):
     train_ds, val_ds = _split_subsets(dataset, validation_split, dataset_percentage, seed)
     train_loader = PatchLoader(
         train_ds, batch_size, shuffle=True, transform=train_transform,
-        device=device, num_workers=num_workers, seed=seed, split=0,
+        device=device, num_workers=num_workers, seed=seed, split=0, mesh=mesh,
     )
     # validation keeps the tail batch: drop_last would yield ZERO val batches for
     # small splits (val_size < batch_size)
     val_loader = PatchLoader(
         val_ds, batch_size, shuffle=False, transform=val_transform,
-        device=device, num_workers=num_workers, seed=seed, split=1, drop_last=False,
+        device=device, num_workers=num_workers, seed=seed, split=1, drop_last=False, mesh=mesh,
     )
     return train_loader, val_loader
 
@@ -230,6 +244,7 @@ def load_data(
     device=None,
     seed: int = 0,
     device_data: bool = False,
+    mesh=None,
 ):
     """Synthetic Gaussian-noise loaders over an image folder.
 
@@ -261,11 +276,11 @@ def load_data(
 
             return None, bank_loader_from_patches(
                 ds, batch_size, make_transform(augment), mode="sequential",
-                device=device, seed=seed,
+                device=device, seed=seed, mesh=mesh,
             )
         loader = PatchLoader(
             ds, batch_size, shuffle=False, transform=make_transform(augment),
-            device=device, num_workers=num_workers, seed=seed,
+            device=device, num_workers=num_workers, seed=seed, mesh=mesh,
         )
         return None, loader
 
@@ -276,16 +291,16 @@ def load_data(
         tr, va = _split_subsets(train_ds, validation_split, dataset_percentage, seed)
         train_loader = bank_loader_from_patches(
             tr, batch_size, make_transform(augment), mode="permute",
-            device=device, seed=seed, split=0,
+            device=device, seed=seed, split=0, mesh=mesh,
         )
         val_loader = bank_loader_from_patches(
             va, batch_size, make_transform(False), mode="sequential",
-            device=device, seed=seed, split=1, drop_last=False,
+            device=device, seed=seed, split=1, drop_last=False, mesh=mesh,
         )
         return train_loader, val_loader
     return _split_loaders(
         train_ds, batch_size, validation_split, dataset_percentage, num_workers,
-        make_transform(augment), make_transform(False), device, seed,
+        make_transform(augment), make_transform(False), device, seed, mesh,
     )
 
 
@@ -332,6 +347,7 @@ def load_sidd_data(
     use_rgb: bool = False,
     device=None,
     seed: int = 0,
+    mesh=None,
 ):
     """Real-noise SIDD pair loaders.  API parity with SIDD_dataset.py:99-168."""
     from .datasets import SIDDPatchDataset
@@ -346,10 +362,10 @@ def load_sidd_data(
     if only_validation:
         loader = PatchLoader(
             ds, batch_size, shuffle=False, transform=make_transform(augment),
-            device=device, num_workers=num_workers, seed=seed,
+            device=device, num_workers=num_workers, seed=seed, mesh=mesh,
         )
         return None, loader
     return _split_loaders(
         ds, batch_size, validation_split, dataset_percentage, num_workers,
-        make_transform(augment), make_transform(False), device, seed,
+        make_transform(augment), make_transform(False), device, seed, mesh,
     )

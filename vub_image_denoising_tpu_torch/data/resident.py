@@ -12,7 +12,10 @@ convention: ``__len__`` is the steps per epoch; each epoch's stream is
 so a resumed run can set it.  In ``sequential`` mode with the same seed and
 split it yields batches byte-identical to an unshuffled ``PatchLoader`` over
 the same items.  JAX's ``key``/``sharding`` arguments are ``seed``/``split``
-and ``device`` here.  The bank holds whole patches: JAX's random-crop
+and ``device`` and ``mesh`` here: over several ranks each rank gathers only
+its rows of every batch from the bank, and the transform's draws are made
+for the whole batch (``data.device.transform_rows``), as ``PatchLoader``
+does.  The bank holds whole patches: JAX's random-crop
 ``patch`` option and ``steps_per_epoch`` override are not ported.
 
 Not for datasets that do not fit in the card's memory beside the train state.
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .device import fold_generator
+from .device import fold_generator, rank_rows, transform_rows
 
 
 class DeviceBankLoader:
@@ -49,6 +52,7 @@ class DeviceBankLoader:
       drop_last: sequential mode only — keep (False) or drop the short tail.
       device: where the bank lives (default the card).
       seed, split: the stream, as ``PatchLoader``'s.
+      mesh: the ``parallel.mesh.Mesh`` whose data axis splits each batch.
     """
 
     def __init__(
@@ -63,7 +67,9 @@ class DeviceBankLoader:
         device=None,
         seed: int = 0,
         split: int = 0,
+        mesh=None,
     ):
+        self.mesh = mesh
         images_u8 = np.asarray(images_u8)
         if images_u8.dtype != np.uint8 or images_u8.ndim != 4:
             raise ValueError(
@@ -100,7 +106,9 @@ class DeviceBankLoader:
 
     def _gather(self, g, idx):
         bank_idx, aux = self.index_map(idx)
-        return self.transform(g, self.bank[bank_idx], *aux)
+        lo, hi = rank_rows(len(idx), self.mesh)
+        return transform_rows(self.transform, g, (self.bank[bank_idx[lo:hi]],), lo, hi,
+                              len(idx), aux)
 
     def __iter__(self):
         epoch = self.epoch
@@ -120,7 +128,8 @@ class DeviceBankLoader:
                 start = step * self.batch_size
                 stop = min(start + self.batch_size, self.n_logical)
                 idx = torch.arange(start, stop, device=self.device)
-            yield self._gather(g, idx)
+            if len(idx) >= (1 if self.mesh is None else self.mesh.size("data")):
+                yield self._gather(g, idx)
 
 
 def bank_loader_from_patches(
@@ -133,6 +142,7 @@ def bank_loader_from_patches(
     split: int = 0,
     drop_last: bool = False,
     verbose: bool = True,
+    mesh=None,
 ):
     """Build a :class:`DeviceBankLoader` from a ``FolderPatchDataset`` (or a
     ``Subset`` chain over one, as ``load_data``'s splits give).
@@ -168,4 +178,5 @@ def bank_loader_from_patches(
     return DeviceBankLoader(
         clean, batch_size, transform=transform, mode=mode, n_logical=len(li),
         index_map=index_map, device=device, seed=seed, split=split, drop_last=drop_last,
+        mesh=mesh,
     )

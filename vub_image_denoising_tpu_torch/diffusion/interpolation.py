@@ -55,8 +55,10 @@ class InterpolationDiffusion:
         in_dtype = noisy.dtype
         noisy32 = noisy.float()
         schedule = list(self._schedule())
-        t2_all = torch.tensor(np.repeat(np.asarray(schedule, np.float32), n, axis=1),
-                              device=noisy.device).to(in_dtype)  # (T, 2N)
+        # (T, 2N): alpha_t n times, then alpha_{t-1} n times; built with torch
+        # ops so that a symbolic batch (torch.export) stays symbolic
+        t2_all = torch.tensor(schedule, dtype=torch.float32, device=noisy.device)[:, :, None]
+        t2_all = t2_all.expand(-1, -1, n).reshape(len(schedule), 2 * n).to(in_dtype)
         x_t = noisy32
         for (alpha_t, alpha_prev), t2 in zip(schedule, t2_all):
             xin = x_t.to(in_dtype)

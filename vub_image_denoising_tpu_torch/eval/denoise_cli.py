@@ -16,6 +16,11 @@ load; ``xla`` the same forward with the eager block (cuDNN convs, no
 kernel).  ``auto`` is ``flax`` in both dtypes: on the card the eager blocks
 are the slow path (the JAX package's "xla under bf16" was a TPU choice).
 
+Over several ranks (``torchrun --nproc-per-node N``; ``main`` joins the
+group, nccl with a card per rank, gloo with ``--device cpu``),
+``--tile-parallel`` splits each image's rows over them and
+``--tensor-parallel`` the layers' channels; rank 0 writes the outputs.
+
 Usage:
   python -m vub_image_denoising_tpu_torch.eval.denoise_cli \
       --checkpoint model.pth --input photo.png --output clean.png [--bf16]
@@ -42,7 +47,8 @@ ENGINES = ("auto", "flax", "xla", "pallas")
 
 def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
                 timesteps: int = 20, channels: int = 3, bf16: bool = False,
-                engine: str = "auto", trusted: bool = False, device=None):
+                engine: str = "auto", trusted: bool = False, device=None,
+                tensor_parallel: bool = False):
     """Shared model/checkpoint construction for every inference entry point:
     returns ``(forward, model)``, where ``forward(batch)`` maps a normalized
     (N, H, W, C) [-1, 1] float32 tensor on the model's device to its denoised
@@ -53,7 +59,13 @@ def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
     ``InterpolationDiffusion.improved_sampling``.  ``engine`` is one of
     ``ENGINES`` (module docstring); ``"auto"`` is ``"flax"``.  f32 runs with
     TF32 off (``enable_strict_precision``); ``bf16=True`` runs the
-    activations in bf16 with the params in f32."""
+    activations in bf16 with the params in f32.  ``forward.trace`` is the
+    same function outside ``torch.inference_mode``, which ``eval/export.py``
+    traces; ``forward.unet`` the U-Net callable on NCHW tensors in the compute
+    dtype ``forward.dtype`` (the pipelined sampler's).  ``tensor_parallel``
+    splits the layers' channels over the ranks (``parallel/tp.py``; every
+    rank calls ``forward`` with the same batch; its DenoisingBlocks run whole,
+    through kernel 1 on the card, whatever the engine)."""
     device = resolve_device(device)
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} (want one of {ENGINES})")
@@ -81,7 +93,16 @@ def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     unet = model
-    if engine != "flax":
+    if tensor_parallel:
+        from ..parallel.tp import make_tp_mesh, put_tp
+
+        tp = put_tp(model, make_tp_mesh(device=device))
+        cache = tp.block_cache(dtype)
+        if arch == "diffusion":
+            unet = lambda x, t: tp.apply(tp.shards, x, t, cache)  # noqa: E731
+        else:
+            unet = lambda x: tp.apply(tp.shards, x, None, cache)  # noqa: E731
+    elif engine != "flax":
         params = prepare_fused_params(model.state_dict())
         kw = block_kernel_weights(params, dtype) if engine == "pallas" else None
         if arch == "diffusion":
@@ -96,13 +117,15 @@ def build_apply(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
     else:
         apply = unet
 
-    def forward(batch):
-        with torch.inference_mode():
-            x = batch.permute(0, 3, 1, 2).to(dtype)
-            if device.type == "cuda":
-                x = x.contiguous(memory_format=torch.channels_last)
-            return apply(x).float().permute(0, 2, 3, 1)
+    def body(batch):
+        x = batch.permute(0, 3, 1, 2).to(dtype)
+        if device.type == "cuda":
+            x = x.contiguous(memory_format=torch.channels_last)
+        return apply(x).float().permute(0, 2, 3, 1)
 
+    forward = torch.inference_mode()(body)
+    forward.trace = body  # the same function outside inference mode, for torch.export
+    forward.unet, forward.dtype = unet, dtype
     return forward, model
 
 
@@ -116,14 +139,32 @@ def _pad8(images: np.ndarray) -> np.ndarray:
 def build_denoiser(checkpoint: str, arch: str = "rdunet", base_filters: int = 32,
                    timesteps: int = 20, channels: int = 3, bf16: bool = False,
                    engine: str = "auto", trusted: bool = False, batched: bool = False,
-                   device=None):
+                   device=None, tile_parallel: bool = False, tensor_parallel: bool = False):
     """(fn: (H, W, C) float32 [-1, 1] numpy -> (H, W, C) float32 numpy) from a
     ``.pth``.  With ``batched=True`` the fn maps a stacked same-size batch
     (N, H, W, C) -> (N, H, W, C) in one forward, or one sampler run (the
-    server's dynamic batching)."""
+    server's dynamic batching).
+
+    Over several ranks (every rank calls the fn on the same image):
+    ``tile_parallel`` splits the image's rows over them
+    (``parallel/tiles.py``; not with ``batched``), ``tensor_parallel`` the
+    layers' channels (``parallel/tp.py``); not both."""
+    if tile_parallel and tensor_parallel:
+        raise ValueError("--tile-parallel and --tensor-parallel are exclusive: "
+                         "rows OR channels shard over the devices, not both")
+    if batched and tile_parallel:
+        raise ValueError("batched denoising is incompatible with tile_parallel "
+                         "(which shards the rows of ONE image over the mesh)")
     forward, model = build_apply(checkpoint, arch, base_filters, timesteps, channels=channels,
-                                 bf16=bf16, engine=engine, trusted=trusted, device=device)
+                                 bf16=bf16, engine=engine, trusted=trusted, device=device,
+                                 tensor_parallel=tensor_parallel)
     device = next(model.parameters()).device
+    if tile_parallel:
+        from ..parallel.mesh import make_mesh
+        from ..parallel.tiles import denoise_large_image
+
+        mesh = make_mesh(device=device)
+        return lambda image: denoise_large_image(forward, image, mesh)
 
     def denoise_batch(images):
         _, h, w, _ = images.shape
@@ -136,7 +177,8 @@ def build_denoiser(checkpoint: str, arch: str = "rdunet", base_filters: int = 32
     return lambda image: denoise_batch(np.asarray(image)[None])[0]
 
 
-def denoise_file(denoise_fn, in_path: str, out_path: str, grayscale: bool = False):
+def denoise_file(denoise_fn, in_path: str, out_path: str, grayscale: bool = False,
+                 write: bool = True):
     from PIL import Image
 
     img = Image.open(in_path)
@@ -147,7 +189,8 @@ def denoise_file(denoise_fn, in_path: str, out_path: str, grayscale: bool = Fals
     x = arr.astype(np.float32) / 255.0 * 2.0 - 1.0  # Normalize(0.5, 0.5)
     y = np.asarray(denoise_fn(x))
     out = np.clip((y + 1.0) * 0.5 * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(out[..., 0] if out.shape[-1] == 1 else out).save(out_path)
+    if write:
+        Image.fromarray(out[..., 0] if out.shape[-1] == 1 else out).save(out_path)
     return out_path
 
 
@@ -168,15 +211,28 @@ def main(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--engine", default="auto", choices=list(ENGINES))
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--tile-parallel", action="store_true",
+                   help="split image rows across the ranks (torchrun)")
+    p.add_argument("--tensor-parallel", action="store_true",
+                   help="split layer channels across the ranks (torchrun; multi-card "
+                        "latency for images too small to tile)")
     p.add_argument("--trusted-checkpoint", action="store_true",
                    help="permit the full-unpickling torch.load fallback when the "
                         "safe weights-only load fails (trusted files only)")
     args = p.parse_args(argv)
 
+    from ..parallel.mesh import init_distributed, is_writer
+
+    # a no-op unless torchrun's environment is set: nccl for a card per rank,
+    # gloo for CPU ranks
+    init_distributed("gloo" if args.device == "cpu" else "nccl")
     channels = 1 if args.grayscale else 3
     denoise_fn = build_denoiser(args.checkpoint, args.arch, args.base_filters, args.timesteps,
                                 channels=channels, bf16=args.bf16, engine=args.engine,
-                                trusted=args.trusted_checkpoint, device=args.device)
+                                trusted=args.trusted_checkpoint, device=args.device,
+                                tile_parallel=args.tile_parallel,
+                                tensor_parallel=args.tensor_parallel)
+    write = is_writer()  # every rank denoises each image; rank 0 writes it
 
     if os.path.isdir(args.input):
         out_dir = args.output or args.input.rstrip("/\\") + "_denoised"
@@ -187,13 +243,13 @@ def main(argv=None):
             raise FileNotFoundError(f"no images in {args.input}")
         for name in names:
             print(denoise_file(denoise_fn, os.path.join(args.input, name),
-                               os.path.join(out_dir, name), args.grayscale))
+                               os.path.join(out_dir, name), args.grayscale, write))
     else:
         out_path = args.output
         if out_path is None:
             stem, ext = os.path.splitext(args.input)
             out_path = f"{stem}_denoised{ext or '.png'}"
-        print(denoise_file(denoise_fn, args.input, out_path, args.grayscale))
+        print(denoise_file(denoise_fn, args.input, out_path, args.grayscale, write))
 
 
 if __name__ == "__main__":

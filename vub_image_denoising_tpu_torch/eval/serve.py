@@ -28,6 +28,8 @@ Usage:
   python -m vub_image_denoising_tpu_torch.eval.serve --checkpoint diffusion.pth \
       --arch diffusion --timesteps 20 [--engine auto|flax|xla|pallas]
   curl -s -X POST --data-binary @noisy.png localhost:8900/denoise > clean.png
+  torchrun --nproc-per-node 2 -m vub_image_denoising_tpu_torch.eval.serve \
+      --checkpoint ck.pth --tensor-parallel   # rank 0 serves, both compute
 """
 
 import argparse
@@ -502,16 +504,31 @@ def main(argv=None):
                    help="Pillow PNG compress_level for responses (0-9)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8900)
+    p.add_argument("--tensor-parallel", action="store_true",
+                   help="split layer channels across the ranks (torchrun): rank 0 serves, "
+                        "the others compute each batch with it")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.tensor_parallel:
+        from ..parallel.mesh import init_distributed
+
+        # torchrun's environment; nccl for a card per rank, gloo for CPU ranks
+        init_distributed("gloo" if device.type == "cpu" else "nccl")
     channels = 1 if args.grayscale else 3
     batching = args.max_batch > 1
     denoise_fn = build_denoiser(
         args.checkpoint, args.arch, args.base_filters, args.timesteps, channels=channels,
         bf16=args.bf16, engine=args.engine, trusted=args.trusted_checkpoint,
-        batched=batching, device=device,
+        batched=batching, device=device, tensor_parallel=args.tensor_parallel,
     )
+    if args.tensor_parallel:
+        from ..parallel.mesh import rank
+
+        if rank() != 0:
+            follow(denoise_fn, device)
+            return
+        denoise_fn = lead(denoise_fn, device)
     if batching:
         service = BatchingDenoiseService(
             denoise_fn, grayscale=args.grayscale,
@@ -537,6 +554,45 @@ def main(argv=None):
     except KeyboardInterrupt:
         server.shutdown()
         service.close()
+    finally:
+        if args.tensor_parallel:
+            denoise_fn.close()
+
+
+def lead(denoise_fn, device):
+    """Rank 0's ``denoise_fn`` under tensor parallelism: each call first
+    broadcasts its input's shape and the input to the ``follow``ing ranks,
+    which compute it with rank 0; ``fn.close()`` releases them."""
+    import torch
+
+    from ..parallel.mesh import broadcast
+
+    def header(*dims):
+        broadcast(torch.tensor([len(dims), *dims] + [0] * (4 - len(dims)), device=device), 0)
+
+    def fn(x):
+        arr = np.ascontiguousarray(np.asarray(x, np.float32))
+        header(*arr.shape)
+        broadcast(torch.from_numpy(arr).to(device), 0)
+        return denoise_fn(arr)
+
+    fn.close = header
+    return fn
+
+
+def follow(denoise_fn, device):
+    """The other ranks under tensor parallelism: take part in every call of
+    rank 0's ``lead`` function until it closes."""
+    import torch
+
+    from ..parallel.mesh import broadcast
+
+    while True:
+        shape = broadcast(torch.zeros(5, dtype=torch.long, device=device), 0).tolist()
+        if shape[0] == 0:
+            return
+        x = broadcast(torch.empty(shape[1:1 + shape[0]], device=device), 0)
+        denoise_fn(x.cpu().numpy())
 
 
 def device_name(device) -> str:

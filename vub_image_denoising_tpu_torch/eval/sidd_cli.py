@@ -36,27 +36,61 @@ BENCHMARK_URL = (
 
 def load_sampler(checkpoint_path: str, base_filters: int = 32, timesteps: int = 20,
                  bf16: bool = False, fused: bool = False, engine: str = "auto",
-                 trusted: bool = False, device=None):
+                 trusted: bool = False, device=None, pipeline_parallel: bool = False,
+                 pipeline_microbatch: int = 0):
     """The T-step improved sampler of a ``unet.``-prefixed RDUNetT ``.pth``:
     a function from normalized (N, H, W, 3) [-1, 1] f32 tensors on
     ``device`` to the denoised f32 tensors, built by
     ``denoise_cli.build_apply(arch="diffusion")``.  ``fused=True`` means
     ``engine="pallas"``; ``trusted=True`` allows the full-unpickling
-    ``torch.load`` fallback for files the user supplied themselves."""
-    forward, _ = build_apply(checkpoint_path, "diffusion", base_filters, timesteps, bf16=bf16,
-                             engine="pallas" if fused else engine, trusted=trusted,
-                             device=device)
-    return forward
+    ``torch.load`` fallback for files the user supplied themselves.
+
+    ``pipeline_parallel`` chunks the T steps over the ranks
+    (``parallel/pipeline.py``: the deepest pipeline that divides T, each
+    stage data parallel over the ranks left), streaming microbatches of
+    ``pipeline_microbatch`` blocks (0: 2); every rank gets the outputs."""
+    forward, model = build_apply(checkpoint_path, "diffusion", base_filters, timesteps,
+                                 bf16=bf16, engine="pallas" if fused else engine,
+                                 trusted=trusted, device=device)
+    if not pipeline_parallel:
+        return forward
+    import torch
+
+    from ..diffusion.interpolation import InterpolationDiffusion
+    from ..parallel.pipeline import best_pipeline_depth, make_ppdp_mesh, pipeline_sample_fn
+
+    depth = best_pipeline_depth(timesteps)
+    dev = next(model.parameters()).device
+    mesh = make_ppdp_mesh(depth, device=dev)
+    inner = pipeline_sample_fn(InterpolationDiffusion(timesteps=timesteps), forward.unet, mesh,
+                               microbatch=pipeline_microbatch or 2)
+    print(f"pipeline-parallel sampling: {depth} stages x {timesteps // depth} steps")
+
+    @torch.inference_mode()
+    def sampler(noisy):
+        x = noisy.permute(0, 3, 1, 2).to(forward.dtype)
+        if dev.type == "cuda":
+            x = x.contiguous(memory_format=torch.channels_last)
+        return inner(x).float().permute(0, 2, 3, 1)
+
+    return sampler
 
 
 def main_validate(args):
+    from ..parallel.mesh import init_distributed, is_writer
+
+    # a no-op unless torchrun's environment is set: nccl for a card per rank,
+    # gloo for CPU ranks
+    init_distributed("gloo" if args.device == "cpu" else "nccl")
     blocks = SIDDMatBlocks(args.noisy_mat, args.gt_mat)
     sampler = load_sampler(args.checkpoint, args.base_filters, args.timesteps, args.bf16,
                            args.fused, args.engine, trusted=args.trusted_checkpoint,
-                           device=args.device)
+                           device=args.device, pipeline_parallel=args.pipeline_parallel,
+                           pipeline_microbatch=args.pipeline_microbatch)
     results = evaluate_sidd(
         sampler, blocks, evaluation_percentage=args.evaluation_percentage,
-        batch_size=args.batch_size, seed=args.seed, csv_path=args.csv, device=args.device,
+        batch_size=args.batch_size, seed=args.seed,
+        csv_path=args.csv if is_writer() else None, device=args.device,
     )
     print(f"Average PSNR: {results['avg_psnr']:.2f}")
     print(f"Average SSIM: {results['avg_ssim']:.4f}")
@@ -106,6 +140,11 @@ def main(argv=None):
                    help="allow the full-unpickling torch.load fallback for a "
                         "checkpoint that fails the safe weights-only load "
                         "(trusted files only)")
+    v.add_argument("--pipeline-parallel", action="store_true",
+                   help="chunk the T sampler steps over the ranks (torchrun) and "
+                        "stream blocks through (parallel/pipeline.py)")
+    v.add_argument("--pipeline-microbatch", type=int, default=0,
+                   help="blocks per in-flight pipeline microbatch (0 -> 2)")
 
     b = sub.add_parser("benchmark")
     b.add_argument("--checkpoint", required=True)

@@ -43,6 +43,11 @@ from ..nn.torch_layers import (
 
 
 class ChannelAttention(nn.Module):
+    """Its mean and variance run over the batch: over the data axis's ranks
+    when ``batch_group`` is set (``parallel.mesh.sync_batchnorm_``)."""
+
+    batch_group = None
+
     def __init__(self, in_channels: int):
         super().__init__()
         self.bn = TorchBatchNorm(in_channels)
@@ -50,9 +55,10 @@ class ChannelAttention(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
+        from ..parallel.mesh import batch_moments
+
         bn_out = self.bn(x)
-        mu = bn_out.mean(dim=(0, 2, 3), keepdim=True)
-        var = bn_out.var(dim=(0, 2, 3), keepdim=True, unbiased=True)
+        mu, var = batch_moments(bn_out, self.batch_group)
         weights = self.gamma.to(x.dtype) / torch.sqrt(var + 1e-5)
         normalized = (bn_out - mu) / torch.sqrt(var + 1e-5)
         return torch.sigmoid(weights * normalized + self.beta.to(x.dtype)) * x

@@ -79,7 +79,10 @@ class DenoisingBlock(nn.Module):
     is ``models.fused_apply.fused_block_trainable``: the same kernel forward,
     and a backward that differentiates the eager block.  The kernel's weight
     layout is built once per (dtype, device) and rebuilt when a parameter
-    changes (``load_state_dict``, ``.to``, an optimizer step)."""
+    changes (``load_state_dict``, ``.to``, an optimizer step); under
+    ``torch.export`` the layout that ``pack_kernel_weights`` built is taken as
+    it is, so the exported program holds it as a constant, and each block is
+    one kernel operator node, on the CPU too."""
 
     def __init__(self, in_channels: int, inner_channels: int, out_channels: int,
                  generator=None):
@@ -96,6 +99,13 @@ class DenoisingBlock(nn.Module):
         self._packed = None
 
     def _kernel_weights(self, params, dtype, device):
+        if torch.compiler.is_exporting():
+            # the layout packed by an eager forward before the export becomes
+            # a constant of the exported program (eval/export.py)
+            if self._packed_key is None or self._packed_key[:2] != (dtype, device):
+                raise RuntimeError("DenoisingBlock: pack_kernel_weights(model, dtype) "
+                                   "before torch.export")
+            return self._packed
         key = (dtype, device, tuple((p.data_ptr(), p._version) for p in params.values()))
         if key != self._packed_key:
             self._packed = pack_block_params(params, dtype, device)
@@ -113,8 +123,19 @@ class DenoisingBlock(nn.Module):
         weights = None
         if x.device.type != "cpu":
             x = x.contiguous(memory_format=torch.channels_last)
+        if x.device.type != "cpu" or torch.compiler.is_exporting():
             weights = self._kernel_weights(params, x.dtype, x.device)
         if torch.is_grad_enabled() and (
                 x.requires_grad or any(p.requires_grad for p in params.values())):
             return fused_block_trainable(x, params, kernel_weights=weights)
         return fused_denoising_block(x, params, weights)
+
+
+def pack_kernel_weights(model, dtype):
+    """Build every DenoisingBlock's kernel weight layout in ``model`` for
+    ``dtype`` on the parameters' device now (``torch.export`` takes them as
+    they are)."""
+    for m in model.modules():
+        if isinstance(m, DenoisingBlock):
+            params = dict(m.named_parameters())
+            m._kernel_weights(params, dtype, next(iter(params.values())).device)

@@ -49,7 +49,10 @@ of x and y at 3.35 TB/s), so it is compute-bound.
 Tensors are logically NCHW, as everywhere in PyTorch, and the kernel takes
 them in NHWC memory (``torch.channels_last``).  The wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the kernel
-or raises.
+or raises.  The launch is the operator ``vub_torch::fused_denoising_block``
+(``fused_denoising_block_op``), so ``torch.export`` keeps each block as one
+node that launches the kernel when the exported program runs
+(``eval/export.py``).
 
 ``fused_denoising_block_packed`` is the same block on the 2x2 even-packed
 layout of ``ops/packing.py`` (kernel 2), by the same static rule: at c in
@@ -243,6 +246,22 @@ def pack_block_params(params, dtype, device):
     return w, torch.cat(ba).to(device=device, dtype=torch.float32).contiguous()
 
 
+def unpack_block_params(w, ba, c: int, inner: int):
+    """The block's params (state_dict keys) from ``pack_block_params``'s
+    layout: its exact inverse, the conv weights in ``w``'s dtype."""
+    out, off = {}, 0
+    nouts = [inner] * 3 + [c]
+    for i in range(4):
+        k = c + i * inner
+        size = 9 * k * nouts[i]
+        out[f"conv_{i}.weight"] = w[off:off + size].reshape(3, 3, k, nouts[i]).permute(3, 2, 0, 1)
+        off += size
+    parts = ba.split(nouts + nouts)
+    for i in range(4):
+        out[f"conv_{i}.bias"], out[f"actv_{i}.weight"] = parts[i], parts[4 + i]
+    return out
+
+
 def _library():
     lib = load_library("fused_block", "fused_block.cu", ("fused_block.cuh",))
     _declare(lib, "fused_block")
@@ -293,14 +312,16 @@ def _declare(lib, prefix):
         err.restype = ctypes.c_char_p
 
 
-def _check_input(name, x, params_desc):
+def _check_input(name, x, params_desc, layout=True):
+    """``layout=False``: leave the memory layout to the operator (under
+    torch.export, whose symbolic strides cannot be asked)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype {x.dtype} (want float32 or bfloat16)")
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be 4-D (N,C,H,W), got {tuple(x.shape)}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+    if layout and not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{name}: x must be NHWC memory "
                          "(x.contiguous(memory_format=torch.channels_last))")
     if torch.is_grad_enabled() and (x.requires_grad or any(
@@ -365,11 +386,52 @@ def _launch_wide(name, x, weights, n, h, w, c, inner, smem, packed_layout=False)
     return y
 
 
+@torch.library.custom_op("vub_torch::fused_denoising_block", mutates_args=())
+def fused_denoising_block_op(x: torch.Tensor, w: torch.Tensor, ba: torch.Tensor) -> torch.Tensor:
+    """Kernel 1's launch as one operator, ``vub_torch::fused_denoising_block``:
+    x (N, C, H, W) in channels_last memory on the card, and the block's
+    weights as ``pack_block_params`` lays them out (w, ba).  It picks the
+    variant and tile from the shapes it is called with (``block_tile``),
+    launches, and counts the launch on ``fused_denoising_block``.  As an
+    operator, ``torch.export`` records it as one node of the graph (its
+    ``register_fake`` gives the output's shape and strides), and the exported
+    program launches the kernel when it runs; ``fused_denoising_block`` is
+    the checked entry for eager callers.  On a CPU tensor (a program
+    exported for the CPU) it is the plain version, on the weights unpacked."""
+    n, c, h, w_ = x.shape
+    inner = (ba.numel() // 2 - c) // 3  # ba holds 3*inner + c biases, then as many alphas
+    if x.device.type == "cpu":
+        return fused_denoising_block_plain(x, unpack_block_params(w, ba, c, inner))
+    # an exported program's input comes as its graph computed it; eager
+    # callers were held to NHWC memory by fused_denoising_block
+    x = x.contiguous(memory_format=torch.channels_last)
+    variant, th, tw, smem = block_tile(x.dtype, n, c, h, w_, sm_count(x.device))
+    if variant == "tc":
+        y = _launch("fused_denoising_block", _tc_library(), "fused_block_tc", x, (w, ba),
+                    n, h, w_, c, inner, (th, tw, smem))
+        fused_denoising_block.tc_launches += 1
+    elif variant == "tc_wide":
+        y = _launch_wide("fused_denoising_block", x, (w, ba), n, h, w_, c, inner, smem)
+        fused_denoising_block.tc_launches += 1
+        fused_denoising_block.wide_launches += 1
+    else:
+        y = _launch("fused_denoising_block", _library(), "fused_block", x, (w, ba),
+                    n, h, w_, c, inner, (th, tw, smem))
+    fused_denoising_block.launches += 1
+    return y
+
+
+@fused_denoising_block_op.register_fake
+def _(x, w, ba):
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
 def fused_denoising_block(x, params, packed=None):
     """Apply one DenoisingBlock to ``x`` (N, C, H, W).
 
     On a CPU tensor this is ``fused_denoising_block_plain``.  On a CUDA tensor
-    it launches a kernel, by this static rule (``block_variant``): f32 or
+    it launches a kernel through the operator ``fused_denoising_block_op``,
+    by this static rule (``block_variant``): f32 or
     bf16 with c in ``TC_WIDTHS`` launches the tensor-core kernel
     (``csrc/fused_block_tc.cu``, 3xTF32 for f32; counted in
     ``.tc_launches``); c > 256 the wide form on the tensor cores
@@ -382,10 +444,12 @@ def fused_denoising_block(x, params, packed=None):
     kernels have no backward: call this under ``torch.no_grad()`` or
     ``torch.inference_mode()``, or train through
     ``models.fused_apply.fused_block_trainable``."""
-    if x.device.type == "cpu":
+    exporting = torch.compiler.is_exporting()
+    if x.device.type == "cpu" and not exporting:
         return fused_denoising_block_plain(x, params)
-    _check_input("fused_denoising_block", x, params)
-    n, c, h, w = x.shape
+    if x.device.type != "cpu":
+        _check_input("fused_denoising_block", x, params, layout=not exporting)
+    c = x.shape[1]
     inner = params["conv_0.weight"].shape[0]
     if params["conv_0.weight"].shape[1] != c or params["conv_3.weight"].shape[0] != c:
         raise ValueError("DenoisingBlock is residual: cout == cin == x's channels")
@@ -397,20 +461,7 @@ def fused_denoising_block(x, params, packed=None):
     if packed is None:
         packed = pack_block_params(params, x.dtype, x.device)
     _check_kernel_weights("fused_denoising_block", packed, x, c, inner)
-    variant, th, tw, smem = block_tile(x.dtype, n, c, h, w, sm_count(x.device))
-    if variant == "tc":
-        y = _launch("fused_denoising_block", _tc_library(), "fused_block_tc", x, packed,
-                    n, h, w, c, inner, (th, tw, smem))
-        fused_denoising_block.tc_launches += 1
-    elif variant == "tc_wide":
-        y = _launch_wide("fused_denoising_block", x, packed, n, h, w, c, inner, smem)
-        fused_denoising_block.tc_launches += 1
-        fused_denoising_block.wide_launches += 1
-    else:
-        y = _launch("fused_denoising_block", _library(), "fused_block", x, packed,
-                    n, h, w, c, inner, (th, tw, smem))
-    fused_denoising_block.launches += 1
-    return y
+    return fused_denoising_block_op(x, *packed)
 
 
 fused_denoising_block.launches = 0  # blocks launched (every variant) since the last reset

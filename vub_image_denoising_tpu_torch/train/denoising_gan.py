@@ -1,7 +1,8 @@
 """Attention-U-Net / PatchGAN denoising-GAN trainer on the card.
 
 Counterpart of ``vub_image_denoising_tpu/train/denoising_gan.py``
-(``train_denoising_gan``, train_denoising_gan.py:173-294), on one device:
+(``train_denoising_gan``, train_denoising_gan.py:173-294), on one device or
+data parallel over ranks (``train.gan.GANDataParallel``):
 
 - G = AttentionUNet(1, 1), D = PatchGAN(2) on cat(noisy, image), NCHW.
 - Label smoothing: 0.9 / 0.1 for D, 1.0 for G.
@@ -35,7 +36,8 @@ from ..models.attention_unet import AttentionUNet, PatchGAN
 from ..models.vgg import VGG19Features, load_torch_vgg19
 from ..utils.checkpoint import _atomic_torch_save
 from ..utils.device import resolve_device
-from .gan import GANTrainState, adam_with_step_lr, apply_update, frozen_apply, state_dict_cpu
+from .gan import (GANTrainState, adam_with_step_lr, apply_update, frozen_apply,
+                  make_data_parallel, state_dict_cpu)
 from .gan_losses import draw_eps, input_gradient_norms
 
 SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
@@ -84,6 +86,7 @@ class DenoisingGANTrainer:
     writer: Any = None
     device: Any = None
     seed: int = 0
+    mesh: Any = None  # parallel.mesh.Mesh: data parallel over its "data" axis
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -92,6 +95,7 @@ class DenoisingGANTrainer:
         init_gen = torch.Generator().manual_seed(self.seed)
         g = AttentionUNet(1, 1, generator=init_gen).to(self.device).train()
         d = PatchGAN(2, generator=init_gen).to(self.device).train()
+        self.dp = make_data_parallel(self, g, d)
         vgg = VGG19Features(num_layers=16, generator=init_gen)
         load_torch_vgg19(vgg, self.vgg_weights_path)
         self.vgg = vgg.to(self.device).eval().requires_grad_(False)
@@ -107,11 +111,15 @@ class DenoisingGANTrainer:
         frozen = frozen_apply(d)
         pred_real = d(torch.cat([noisy, clean], 1))
         pred_fake = d(torch.cat([noisy, fake], 1))
-        gp = conditional_gradient_penalty(frozen, noisy, clean, fake, alpha,
-                                          generator or self._draws)
+        gen = generator or self._draws
+        if alpha is None and self.dp.n > 1:
+            alpha = self.dp.rows(lambda n: draw_eps(clean.new_empty((n,) + tuple(clean.shape[1:])),
+                                                    gen), clean.shape[0])
+        gp = conditional_gradient_penalty(frozen, noisy, clean, fake, alpha, gen)
         loss = 0.5 * (bce(pred_real, 0.9) + bce(pred_fake, 0.1)) + self.lambda_gp * gp
-        apply_update(loss, list(d.parameters()), state.d_opt, state.d_sched)
-        return loss.detach()
+        apply_update(loss, list(d.parameters()), state.d_opt, state.d_sched,
+                     reduce=self.dp.reduce)
+        return self.dp.mean(loss.detach())
 
     def g_step(self, state, noisy, clean):
         fake = state.generator(noisy)
@@ -121,9 +129,11 @@ class DenoisingGANTrainer:
                  "edge": edge_loss(fake, clean)}
         total = (parts["gan"] + self.lambda_pixel * parts["pixel"]
                  + self.lambda_perceptual * parts["perceptual"] + self.lambda_edge * parts["edge"])
-        apply_update(total, list(state.generator.parameters()), state.g_opt, state.g_sched)
+        apply_update(total, list(state.generator.parameters()), state.g_opt, state.g_sched,
+                     reduce=self.dp.reduce)
         state.step += 1
-        return total.detach(), {k: v.detach() for k, v in parts.items()}
+        return self.dp.mean(total.detach()), {k: self.dp.mean(v.detach())
+                                              for k, v in parts.items()}
 
     def generate(self, state, x):
         g = state.generator

@@ -23,8 +23,14 @@ state, plus a final bare state_dict (:284-286).
 
 Batches are (N, 3, H, W) tensors in [-1, 1]; the trainer moves them to its
 device (the card unless ``device="cpu"`` / ``--device cpu``).  Where the JAX
-functions take a ``key`` or a ``sharding``, these take the trainer's seed
-and a ``device``; ``--param-sharding`` accepts only ``replicated`` (one card).
+functions take a ``key``, these take the trainer's seed.  Over several
+ranks (``torchrun --nproc-per-node N``; ``main`` joins the group with
+``parallel.mesh.init_distributed``, as JAX's calls ``init_distributed``:
+nccl with a card per rank, gloo with ``--device cpu``) each rank trains on
+its rows of every global batch;
+``--param-sharding`` is ``replicated``, ``fsdp`` (params and Adam moments
+sharded, ``parallel/fsdp.py``) or ``tp`` (channels split,
+``parallel/tp.py``).  Rank 0 writes the checkpoints.
 """
 
 import argparse
@@ -41,13 +47,15 @@ from ..diffusion.interpolation import InterpolationDiffusion
 from ..diffusion.losses import combined_loss
 from ..models.fused_apply import block_kernel_weights, rdunet_t_apply_fused
 from ..models.rdunet import RDUNetT
+from ..parallel.mesh import init_distributed, is_writer
 from ..utils import checkpoint as ckpt_io
 from ..utils.device import resolve_device
 from ..utils.preempt import GracefulShutdown
 from ..utils.tb import add_image_grid
 from .schedules import make_optimizer
-from .state import TrainState
-from .supervised import ENGINES, accumulate_and_apply, nhwc_unit, put_batch
+from .state import ShardedTrainerMixin, TrainState
+from .supervised import (ENGINES, accumulate_and_apply, data_parallel_accumulation, nhwc_unit,
+                         put_batch)
 
 SAMPLING = ("improved", "direct")
 
@@ -73,7 +81,7 @@ def sample_timesteps(generator, n: int, timesteps: int, distribution: str = "uni
 def make_diffusion_train_step(unet_apply, diffusion: InterpolationDiffusion,
                               accumulation_steps: int = 1, distribution: str = "uniform",
                               loss_weights=(0.0, 1.0, 0.0), compute_dtype=torch.float32,
-                              kernel_weights_fn=None):
+                              kernel_weights_fn=None, data_shards: int = 1, data_index: int = 0):
     """The accumulate -> clip -> step function of the diffusion trainer.
 
     ``unet_apply(params, x, t) -> prediction``, with ``t`` an (N,) vector of
@@ -83,16 +91,27 @@ def make_diffusion_train_step(unet_apply, diffusion: InterpolationDiffusion,
     and the U-Net run in ``compute_dtype``; params stay f32.  With
     ``kernel_weights_fn(params)``, the block kernels' weights are built once
     per step and shared by its micro-batches, as in
-    ``make_supervised_train_step``."""
+    ``make_supervised_train_step``.
+
+    With ``data_shards`` > 1 the step takes rank ``data_index``'s rows of a
+    global batch (a contiguous block, ``parallel.mesh.local_batch_rows``):
+    every rank draws the timesteps of the global batch, micro-batch by
+    micro-batch as one rank would, and keeps its rows' (JAX draws one key
+    for the global batch)."""
     mse_w, charb_w, ssim_w = loss_weights
     T = diffusion.timesteps
 
     def step(state: TrainState, generator, noisy, clean):
         kw = {} if kernel_weights_fn is None else {
             "kernel_weights": kernel_weights_fn(state.params)}
+        n = noisy.shape[0]
+        acc = data_parallel_accumulation(n, accumulation_steps, data_shards)
+        mb = n * data_shards // acc
+        ts = torch.cat([sample_timesteps(generator, mb, T, distribution)
+                        for _ in range(acc)]).to(noisy.device)[data_index * n:(data_index + 1) * n]
 
         def micro_loss(sl):
-            t = sample_timesteps(generator, clean[sl].shape[0], T, distribution).to(noisy.device)
+            t = ts[sl]
             alpha = (t / T).reshape(-1, 1, 1, 1).to(compute_dtype)
             interpolated = (alpha * noisy[sl].to(compute_dtype)
                             + (1 - alpha) * clean[sl].to(compute_dtype))
@@ -100,13 +119,13 @@ def make_diffusion_train_step(unet_apply, diffusion: InterpolationDiffusion,
             return combined_loss(pred.float(), clean[sl].float(), mse_weight=mse_w,
                                  charbonnier_weight=charb_w, ssim_weight=ssim_w)
 
-        return accumulate_and_apply(state, noisy.shape[0], accumulation_steps, micro_loss)
+        return accumulate_and_apply(state, n, acc, micro_loss)
 
     return step
 
 
 @dataclasses.dataclass
-class DiffusionTrainer:
+class DiffusionTrainer(ShardedTrainerMixin):
     """The diffusion training loop on an ``RDUNetT(base_filters)``, with the
     JAX trainer's defaults (``train(args)``, diffusion_RDUnet.py:230-288).
 
@@ -118,7 +137,10 @@ class DiffusionTrainer:
     and recomputes the eager engines' blocks in the backward with the others.
     ``sampling`` is the validation sampler: ``"improved"`` (T steps) or
     ``"direct"`` (one call at t = 1).  ``state.params`` are the model's own
-    parameters."""
+    parameters (``param_sharding="tp"``: its shards).  Over several ranks,
+    as ``SupervisedTrainer`` (``param_sharding`` "replicated", "fsdp" or
+    "tp"; ``train_step`` takes this rank's rows and returns the global
+    loss)."""
 
     base_filters: int = 32
     timesteps: int = 20
@@ -138,6 +160,8 @@ class DiffusionTrainer:
     engine: str = "flax"
     remat: Any = False
     device: Any = None
+    param_sharding: str = "replicated"
+    mesh: Any = None  # parallel.mesh.Mesh; default: every rank on "data" ("tp": on "model")
 
     def init(self, steps_per_epoch: int, seed: int = 0) -> TrainState:
         """Builds the model from ``seed`` on the trainer's device, the
@@ -162,9 +186,12 @@ class DiffusionTrainer:
                                  weight_decay=self.weight_decay,
                                  scheduler_choice=self.scheduler_choice,
                                  steps_per_epoch=self.steps_per_epoch, clip_norm=self.clip_norm)
-        state = TrainState.create(dict(self.unet.named_parameters()), self.tx)
+        state = self._make_state(self.unet, self.tx)
         kernel_weights_fn = None
-        if self.engine == "flax":
+        if self.tp is not None:
+            tp = self.tp
+            self.unet_apply = lambda p, x, t: tp.apply(p, x, t)  # noqa: E731
+        elif self.engine == "flax":
             self.unet_apply = lambda p, x, t: self.unet(x, t)  # noqa: E731 — p are its parameters
         else:
             eng, rm = self.engine, self.remat
@@ -178,7 +205,8 @@ class DiffusionTrainer:
         self._step = make_diffusion_train_step(
             self.unet_apply, self.diffusion, self.accumulation_steps,
             distribution=self.distribution_choice, loss_weights=tuple(self.loss_weights),
-            compute_dtype=self.compute_dtype, kernel_weights_fn=kernel_weights_fn)
+            compute_dtype=self.compute_dtype, kernel_weights_fn=kernel_weights_fn,
+            data_shards=self.data_shards(), data_index=self.mesh.index("data"))
         return state
 
     def put(self, batch):
@@ -188,7 +216,8 @@ class DiffusionTrainer:
         """One step; its timesteps come from ``generator`` (default the
         trainer's running generator)."""
         g = self.generator if generator is None else generator
-        return self._step(state, g, self.put(noisy), self.put(clean))
+        state, loss = self._step(state, g, self.put(noisy), self.put(clean))
+        return state, self.global_mean(loss)
 
     def train_epoch(self, state, train_loader, epoch: int = 0):
         """One pass over ``train_loader``'s (noisy, clean) batches, batch b's
@@ -229,7 +258,7 @@ class DiffusionTrainer:
         noisy, clean = self.put(noisy), self.put(clean)
         denoised = self.sample(state, noisy)
         with torch.no_grad():
-            vloss = float(combined_loss(denoised.float(), clean.float()))
+            vloss = float(self.global_mean(combined_loss(denoised.float(), clean.float())))
         if self.writer is not None:
             self.writer.add_scalar("Loss/validation", vloss, epoch + 1)
             for tag, imgs in ((f"Epoch_{epoch + 1}/Clean Images", clean),
@@ -246,9 +275,8 @@ class DiffusionTrainer:
             self.output_dir,
             name or f"diffusion_RDUNet_model_checkpointed_epoch_{epoch + 1}.pth",
         )
-        ckpt_io.save_pth(path, self.unet.state_dict(), epoch=epoch + 1, prefix="unet.",
-                         extra=state.checkpoint_payload())
-        return path
+        return self.write_checkpoint(state, path, lambda p, extra: ckpt_io.save_pth(
+            p, self.unet.state_dict(), epoch=epoch + 1, prefix="unet.", extra=extra))
 
     def load_checkpoint(self, state, checkpoint_path):
         """Resume (diffusion_RDUnet.py:180-193): returns ``(state, start_epoch)``;
@@ -259,6 +287,7 @@ class DiffusionTrainer:
             return state, 0
         _, payload = ckpt_io.load_pth(checkpoint_path, self.unet, prefix="unet.",
                                       allow_pickle=True)
+        self.after_load(state)
         start_epoch = int(payload.get("epoch", 0)) if payload else 0
         state.resume(payload, start_epoch * self.steps_per_epoch)
         print(f"Loaded checkpoint '{checkpoint_path}' (epoch {start_epoch})")
@@ -322,8 +351,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "pallas (the block kernel, recompute backward)")
     p.add_argument("--remat", action="store_true",
                    help="recompute the DenoisingBlocks in the backward (every engine)")
-    p.add_argument("--param-sharding", type=str, default="replicated", choices=["replicated"],
-                   help="one card: parameters are not sharded")
+    p.add_argument("--param-sharding", type=str, default="replicated",
+                   choices=["replicated", "fsdp", "tp"],
+                   help="fsdp shards params + Adam moments over the data ranks "
+                        "(parallel/fsdp.py); tp shards each layer's channels over the "
+                        "ranks (parallel/tp.py), the batch replicated")
+
     p.add_argument("--device-data", action="store_true",
                    help="keep the deduped uint8 patch bank in the card's memory and draw "
                         "and degrade batches there (data/resident.py); DIV2K only")
@@ -332,8 +365,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_data_for(args, device=None):
-    """Dataset dispatch (diffusion_RDUnet.py:222-228)."""
+def load_data_for(args, device=None, mesh=None):
+    """Dataset dispatch (diffusion_RDUnet.py:222-228); over several ranks
+    each loader fetches its rank's rows of ``mesh``'s data axis."""
     from ..data.loader import load_data as load_div2k_data
     from ..data.loader import load_sidd_data
 
@@ -344,7 +378,7 @@ def load_data_for(args, device=None):
             folder, batch_size=args.batch_size, augment=args.augment,
             dataset_percentage=args.dataset_percentage,
             validation_split=args.validation_split, use_rgb=True,
-            num_workers=args.num_workers, device=device, device_data=device_data,
+            num_workers=args.num_workers, device=device, device_data=device_data, mesh=mesh,
         )
     if device_data:
         raise ValueError("--device-data currently supports DIV2K only (the "
@@ -354,7 +388,7 @@ def load_data_for(args, device=None):
         folder, batch_size=args.batch_size, augment=args.augment,
         dataset_percentage=args.dataset_percentage,
         validation_split=args.validation_split, use_rgb=True,
-        num_workers=args.num_workers, device=device,
+        num_workers=args.num_workers, device=device, mesh=mesh,
     )
 
 
@@ -384,6 +418,7 @@ def train(args, train_loader=None, val_loader=None):
         engine=getattr(args, "engine", "flax"),
         remat=getattr(args, "remat", False),
         device=getattr(args, "device", None),
+        param_sharding=getattr(args, "param_sharding", "replicated"),
     )
     try:
         from tensorboardX import SummaryWriter
@@ -394,8 +429,10 @@ def train(args, train_loader=None, val_loader=None):
     except ImportError:
         pass
 
+    trainer.device = resolve_device(trainer.device)
+    mesh = trainer.ensure_mesh()
     if train_loader is None or val_loader is None:
-        train_loader, val_loader = load_data_for(args, device=trainer.device)
+        train_loader, val_loader = load_data_for(args, device=trainer.device, mesh=mesh)
 
     state = trainer.init(steps_per_epoch=len(train_loader))
     state, start_epoch = trainer.load_checkpoint(state, args.checkpoint_path)
@@ -404,8 +441,9 @@ def train(args, train_loader=None, val_loader=None):
     )
 
     final_path = os.path.join(args.output_dir, "diffusion_RDUNet_model_checkpointed_final.pth")
-    ckpt_io.save_pth(final_path, trainer.unet.state_dict(), prefix="unet.", bare=True)
-    print(f"Final model saved at {final_path}")
+    if is_writer():
+        ckpt_io.save_pth(final_path, trainer.unet.state_dict(), prefix="unet.", bare=True)
+        print(f"Final model saved at {final_path}")
     if trainer.writer is not None:
         trainer.writer.close()
     return state, history
@@ -416,6 +454,9 @@ def main(argv=None):
 
     args = build_arg_parser().parse_args(argv)
     enable_compilation_cache()
+    # a no-op unless torchrun's environment is set: nccl for a card per rank,
+    # gloo for CPU ranks
+    init_distributed("gloo" if args.device == "cpu" else "nccl")
     try:
         return train(args)
     except Exception as e:  # mirror the reference's top-level guard (:314-315)

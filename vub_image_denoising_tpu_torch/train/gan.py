@@ -1,6 +1,7 @@
 """RCA-GAN trainer on the card: ``train_rca_gan`` (paper_gan.py:317-457).
 
-Counterpart of ``vub_image_denoising_tpu/train/gan.py``, on one device:
+Counterpart of ``vub_image_denoising_tpu/train/gan.py``, on one device or
+data parallel over ranks (``GANDataParallel``):
 
 - Generator(1, 1) and Discriminator(1) on grayscale pairs; kaiming init.
 - D step: d_loss = -mean(D(gt)) + mean(D(G(degraded).detach())) + GP; Adam(5e-5,
@@ -47,7 +48,7 @@ from ..models.rca_gan import Discriminator, Generator
 from ..models.vgg import VGG19Features, load_torch_vgg19
 from ..utils.checkpoint import _atomic_torch_save, load_torch_payload
 from ..utils.device import resolve_device
-from .gan_losses import gradient_penalty, multimodal_loss
+from .gan_losses import draw_eps, gradient_penalty, multimodal_loss
 from .schedules import clip_by_global_norm_, step_lr
 
 
@@ -89,11 +90,14 @@ def adam_with_step_lr(params, lr, betas, steps_per_epoch):
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: schedule(k) / lr)
 
 
-def apply_update(loss, params, opt, sched, clip_norm=None):
-    """Gradients of ``loss`` for ``params`` alone, clipped to ``clip_norm``
-    (optax's global-norm clip), left in ``.grad``, and one optimizer and
-    schedule step."""
+def apply_update(loss, params, opt, sched, clip_norm=None, reduce=None):
+    """Gradients of ``loss`` for ``params`` alone, averaged over the ranks by
+    ``reduce`` (a ``DataParallel``'s), clipped to ``clip_norm`` (optax's
+    global-norm clip), left in ``.grad``, and one optimizer and schedule
+    step."""
     grads = list(torch.autograd.grad(loss, params))
+    if reduce is not None:
+        grads = reduce(grads)
     if clip_norm is not None:
         clip_by_global_norm_(grads, clip_norm)
     for p, g in zip(params, grads):
@@ -104,6 +108,52 @@ def apply_update(loss, params, opt, sched, clip_norm=None):
 
 def state_dict_cpu(module):
     return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+
+
+class GANDataParallel:
+    """Data parallelism of a GAN trainer over ``mesh``'s data axis (JAX's
+    trainers shard the batch over the mesh): rank 0's G and D on every
+    rank, their BatchNorms on the global batch's statistics
+    (``parallel.mesh.sync_batchnorm_``), each rank's gradients averaged
+    (``reduce``), every random draw made for the global batch and cut to
+    this rank's rows (``rows``), losses averaged (``mean``).  Each rank's
+    steps take its rows of the global batch."""
+
+    def __init__(self, mesh, *modules):
+        from ..parallel.mesh import put_replicated, sync_batchnorm_
+
+        self.mesh, self.n = mesh, mesh.size("data")
+        self.group = mesh.group("data")  # None with one rank
+        for m in modules:
+            put_replicated(m.state_dict(), mesh)
+            sync_batchnorm_(m, mesh)
+
+    def reduce(self, grads):
+        from ..parallel.mesh import all_reduce_mean_flat
+
+        return all_reduce_mean_flat(grads, self.group)
+
+    def rows(self, draw, n_local):
+        """``draw(n)`` for the global batch of ``n_local`` rows per rank: this
+        rank's rows of it."""
+        from ..parallel.mesh import shard_batch
+
+        return draw(n_local) if self.n == 1 else shard_batch(draw(n_local * self.n), self.mesh)
+
+    def mean(self, value):
+        from ..parallel.mesh import all_reduce
+
+        return value if self.n == 1 else all_reduce(value, self.group) / self.n
+
+
+def make_data_parallel(trainer, *modules):
+    """The trainer's ``GANDataParallel`` over ``trainer.mesh`` (default:
+    every rank on "data")."""
+    from ..parallel.mesh import make_mesh
+
+    if trainer.mesh is None:
+        trainer.mesh = make_mesh(device=trainer.device)
+    return GANDataParallel(trainer.mesh, *modules)
 
 
 @dataclasses.dataclass
@@ -129,6 +179,7 @@ class RCAGANTrainer:
     critic_norm: str = "bn"
     device: Any = None
     seed: int = 0
+    mesh: Any = None  # parallel.mesh.Mesh: data parallel over its "data" axis
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -151,6 +202,7 @@ class RCAGANTrainer:
     def _make_state(self, g, d, vgg, steps_per_epoch):
         self.vgg = vgg.to(self.device).eval().requires_grad_(False)
         g, d = g.to(self.device).train(), d.to(self.device).train()
+        self.dp = make_data_parallel(self, g, d)
         g_opt, g_sched = adam_with_step_lr(g.parameters(), self.lr, self.betas, steps_per_epoch)
         d_opt, d_sched = adam_with_step_lr(d.parameters(), self.lr, self.betas, steps_per_epoch)
         self._draws = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -160,7 +212,19 @@ class RCAGANTrainer:
         if not self._gen_takes_draws:
             return g(x)
         t, noise = (None, None) if g_draws is None else g_draws
+        if g_draws is None and self.dp.n > 1:
+            # drawn for the global batch in the shape of the attention output,
+            # 64 channels at the input's size (models/experimental.py)
+            t, noise = self.dp.rows(lambda n: g.draw(n, (n, 64) + tuple(x.shape[2:]), x.device,
+                                                     x.dtype, generator), x.shape[0])
         return g(x, t=t, noise=noise, generator=generator)
+
+    def _eps(self, real, eps, generator):
+        """The penalty's eps (default drawn for the global batch)."""
+        if eps is not None or self.dp.n == 1:
+            return eps
+        return self.dp.rows(lambda n: draw_eps(real.new_empty((n,) + tuple(real.shape[1:])),
+                                               generator), real.shape[0])
 
     def d_step(self, state, degraded, gt, generator=None, eps=None, g_draws=None):
         """One critic update; returns its loss.  ``eps`` (N, 1, 1, 1) and the
@@ -171,10 +235,10 @@ class RCAGANTrainer:
             fake = self._generate(g, degraded, gen, g_draws)
         frozen = frozen_apply(d)
         d_real, d_fake = d(gt), d(fake)
-        gp = gradient_penalty(frozen, gt, fake, eps, gen, self.lambda_gp)
+        gp = gradient_penalty(frozen, gt, fake, self._eps(gt, eps, gen), gen, self.lambda_gp)
         loss = -torch.mean(d_real) + torch.mean(d_fake) + gp
-        apply_update(loss, list(d.parameters()), state.d_opt, state.d_sched, 1.0)
-        return loss.detach()
+        apply_update(loss, list(d.parameters()), state.d_opt, state.d_sched, 1.0, self.dp.reduce)
+        return self.dp.mean(loss.detach())
 
     def g_step(self, state, degraded, gt, generator=None, eps=None, g_draws=None):
         """One generator update; returns (loss, its parts)."""
@@ -184,12 +248,15 @@ class RCAGANTrainer:
             lam_adv = lam_adv * min(1.0, (state.step + 1) / self.adv_ramp_steps)
         fake = self._generate(state.generator, degraded, gen, g_draws)
         total, parts = multimodal_loss(
-            self.vgg, frozen_apply(state.discriminator), fake, gt, eps, gen,
+            self.vgg, frozen_apply(state.discriminator), fake, gt, self._eps(gt, eps, gen), gen,
             lambda1=self.lambda_pixel, lambda2=self.lambda_perceptual,
-            lambda3=self.lambda_texture, lambda4=lam_adv, lambda_gp=self.lambda_gp)
-        apply_update(total, list(state.generator.parameters()), state.g_opt, state.g_sched, 1.0)
+            lambda3=self.lambda_texture, lambda4=lam_adv, lambda_gp=self.lambda_gp,
+            batch_group=self.dp.group)
+        apply_update(total, list(state.generator.parameters()), state.g_opt, state.g_sched, 1.0,
+                     self.dp.reduce)
         state.step += 1
-        return total.detach(), {k: v.detach() for k, v in parts.items()}
+        return self.dp.mean(total.detach()), {k: self.dp.mean(v.detach())
+                                              for k, v in parts.items()}
 
     def val_loss(self, state, degraded, gt, generator=None, eps=None, g_draws=None):
         """The reference's validation loss (paper_gan.py:415-424): the eval-mode
@@ -202,7 +269,7 @@ class RCAGANTrainer:
                 self.vgg, frozen_apply(state.discriminator), fake, gt, eps, gen,
                 lambda1=self.lambda_pixel, lambda2=self.lambda_perceptual,
                 lambda3=self.lambda_texture, lambda4=self.lambda_adv,
-                lambda_gp=self.lambda_gp, create_graph=False)
+                lambda_gp=self.lambda_gp, create_graph=False, batch_group=self.dp.group)
         return total
 
     def generate(self, state, x, generator=None, g_draws=None):

@@ -15,6 +15,14 @@ Counterpart of ``vub_image_denoising_tpu/train/gan_losses.py``, on NCHW:
 
 ``eps`` is drawn from ``generator`` unless it is given (the tests hand over
 JAX's draws).
+
+The texture and content terms are not means of per-sample terms (the gram
+matrix spans the batch; the square root is of the batch's L1).  Under data
+parallelism (``batch_group``: the data axis's process group) they are taken
+over the global batch, as GSPMD takes them in JAX: the features are
+all-gathered (``parallel.mesh.all_gather_rows``) and the L1 summed over the
+ranks, each rank's loss being the global term, whose gradient the
+collectives' backward sums over the ranks.
 """
 
 import torch
@@ -32,12 +40,20 @@ def gram_matrix(x):
     return (f @ f.t()) / (a * b * c * d)
 
 
-def texture_loss(generated, real):
+def texture_loss(generated, real, batch_group=None):
+    if batch_group is not None:
+        from ..parallel.mesh import all_gather_rows
+
+        generated, real = all_gather_rows(generated, batch_group), all_gather_rows(real, batch_group)
     return torch.mean((gram_matrix(generated) - gram_matrix(real)) ** 2)
 
 
-def content_loss(generated, real):
+def content_loss(generated, real, batch_group=None):
     l1 = torch.mean(torch.abs(generated - real))
+    if batch_group is not None:
+        from ..parallel.mesh import all_reduce_sum_autograd, group_size
+
+        l1 = all_reduce_sum_autograd(l1, batch_group) / group_size(batch_group)
     return torch.sqrt(l1 ** 2 + 1e-8)
 
 
@@ -75,11 +91,11 @@ def wgan_adversarial(d_apply, real, fake, eps=None, generator=None, lambda_gp=10
 
 def multimodal_loss(vgg, d_apply, generated, real, eps=None, generator=None,
                     lambda1=1.0, lambda2=0.01, lambda3=0.001, lambda4=1.0, lambda_gp=10.0,
-                    create_graph=True):
+                    create_graph=True, batch_group=None):
     """The generator's objective (paper_gan.py:280-287); returns (total, parts)."""
     l_percep = perceptual_loss(vgg, real, generated)
-    l_content = content_loss(generated, real)
-    l_texture = texture_loss(generated, real)
+    l_content = content_loss(generated, real, batch_group)
+    l_texture = texture_loss(generated, real, batch_group)
     l_adv = wgan_adversarial(d_apply, real, generated, eps, generator, lambda_gp, create_graph)
     total = lambda1 * l_percep + lambda2 * l_content + lambda3 * l_texture + lambda4 * l_adv
     return total, {"perceptual": l_percep, "content": l_content, "texture": l_texture,

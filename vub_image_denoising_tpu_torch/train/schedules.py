@@ -85,10 +85,15 @@ def make_optimizer(
     return OptimizerSpec(optimizer_choice, lr, weight_decay, schedule, clip_norm)
 
 
-def clip_by_global_norm_(grads, max_norm: float):
+def clip_by_global_norm_(grads, max_norm: float, sq_norm=None):
     """Scale ``grads`` in place by max_norm / ||grads|| when the global norm
-    exceeds max_norm (``optax.clip_by_global_norm``); no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    exceeds max_norm (``optax.clip_by_global_norm``); no host sync.
+    ``sq_norm(grads)``, when given, is the squared global norm (of gradients
+    split over ranks: ``parallel.fsdp.ShardedParams.sq_norm``)."""
+    if sq_norm is not None:
+        norm = torch.sqrt(sq_norm(grads))
+    else:
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
     for g in grads:
         g.mul_(scale)

@@ -32,7 +32,7 @@ from ..utils.device import resolve_device
 from ..utils.preempt import GracefulShutdown
 from ..utils.tb import add_image_grid
 from .schedules import make_optimizer
-from .state import TrainState
+from .state import ShardedTrainerMixin, TrainState
 
 ENGINES = ("flax", "xla", "pallas")
 
@@ -55,6 +55,7 @@ def make_supervised_train_step(
     loss_fn: Optional[Callable] = None,
     compute_dtype=torch.float32,
     kernel_weights_fn: Optional[Callable] = None,
+    data_shards: int = 1,
 ):
     """The accumulate -> clip -> step function.
 
@@ -66,26 +67,41 @@ def make_supervised_train_step(
     so this takes no ``tx``.)  With ``kernel_weights_fn(params)``, the
     block kernels' weights are built once per step, before its update, and
     every micro-batch's ``apply_fn(params, noisy, kernel_weights=...)``
-    shares them."""
+    shares them.  With ``data_shards`` > 1 the step takes this rank's rows
+    of a global batch (``data_parallel_accumulation``)."""
     loss_fn = loss_fn or l1_loss
 
     def step(state: TrainState, noisy, clean):
         kw = {} if kernel_weights_fn is None else {
             "kernel_weights": kernel_weights_fn(state.params)}
+        acc = data_parallel_accumulation(noisy.shape[0], accumulation_steps, data_shards)
 
         def micro_loss(sl):
             pred = apply_fn(state.params, noisy[sl].to(compute_dtype), **kw)
             return loss_fn(pred.float(), clean[sl].float())
 
-        return accumulate_and_apply(state, noisy.shape[0], accumulation_steps, micro_loss)
+        return accumulate_and_apply(state, noisy.shape[0], acc, micro_loss)
 
     return step
+
+
+def data_parallel_accumulation(n: int, accumulation_steps: int, data_shards: int = 1) -> int:
+    """The micro-batches of a step on ``n`` rows of a global batch split over
+    ``data_shards`` ranks: ``effective_accumulation`` of the global batch.
+    Over ranks, each rank's rows must split into that many equal
+    micro-batches: the mean of the ranks' micro-batch gradients is then the
+    global micro-batches' (the losses are per-sample means)."""
+    acc = effective_accumulation(n * data_shards, accumulation_steps)
+    if data_shards > 1 and n % acc:
+        raise ValueError(f"{n} rows per rank do not split into {acc} micro-batches")
+    return acc
 
 
 def accumulate_and_apply(state: TrainState, n: int, accumulation_steps: int, micro_loss):
     """Split a batch of ``n`` into ``effective_accumulation`` micro-batches,
     SUM the gradients of ``micro_loss(slice)`` over them, and take one
-    clipped optimizer step.  Returns ``(state, mean micro-batch loss)``."""
+    clipped optimizer step (its gradients reduced over the ranks by
+    ``state.parallel``).  Returns ``(state, mean micro-batch loss)``."""
     acc = effective_accumulation(n, accumulation_steps)
     mb = n // acc
     params = list(state.params.values())
@@ -110,7 +126,7 @@ def put_batch(batch, device):
 
 
 @dataclasses.dataclass
-class SupervisedTrainer:
+class SupervisedTrainer(ShardedTrainerMixin):
     """The supervised training loop.
 
     ``engine``: ``"flax"`` runs the model's modules (every DenoisingBlock on
@@ -118,7 +134,14 @@ class SupervisedTrainer:
     eager engine of ``models.fused_apply``; ``"pallas"`` the same engine with
     the block kernel and the recompute backward.  ``apply_fn(params, x)``
     overrides the engine.  ``state.params``
-    are the model's own parameters."""
+    are the model's own parameters (``param_sharding="tp"``: its shards,
+    through ``parallel.tp``'s forward, whatever the engine).
+
+    Over several ranks (``torch.distributed`` up, ``parallel.mesh``) each
+    rank's ``train_step`` takes its rows of the global batch
+    (``parallel.mesh.shard_batch``; with ``"tp"`` the whole batch) and
+    returns the global batch's loss; ``param_sharding`` is ``"replicated"``,
+    ``"fsdp"`` or ``"tp"`` (``ShardedTrainerMixin``)."""
 
     model: Any
     lr: float = 1e-4
@@ -134,6 +157,8 @@ class SupervisedTrainer:
     engine: str = "flax"
     remat: bool = False  # recompute the eager engine's blocks in the backward
     device: Any = None
+    param_sharding: str = "replicated"
+    mesh: Any = None  # parallel.mesh.Mesh; default: every rank on "data" ("tp": on "model")
 
     def init(self, steps_per_epoch: int) -> TrainState:
         if self.engine not in ENGINES:
@@ -146,9 +171,12 @@ class SupervisedTrainer:
         self.tx = make_optimizer("adamw", lr=self.lr, weight_decay=self.weight_decay,
                                  scheduler_choice="step", steps_per_epoch=self.steps_per_epoch,
                                  clip_norm=self.clip_norm)
-        state = TrainState.create(dict(self.model.named_parameters()), self.tx)
+        state = self._make_state(self.model, self.tx)
         apply, kernel_weights_fn = self.apply_fn, None
-        if apply is None:
+        if self.tp is not None:
+            tp = self.tp
+            apply = lambda p, x: tp.apply(p, x)  # noqa: E731
+        elif apply is None:
             if self.engine == "flax":
                 apply = lambda p, x: self.model(x)  # noqa: E731 — p are its parameters
             else:
@@ -162,7 +190,8 @@ class SupervisedTrainer:
         self.forward_fn = apply
         self._step = make_supervised_train_step(apply, self.accumulation_steps,
                                                 compute_dtype=self.compute_dtype,
-                                                kernel_weights_fn=kernel_weights_fn)
+                                                kernel_weights_fn=kernel_weights_fn,
+                                                data_shards=self.data_shards())
         return state
 
     def put(self, batch):
@@ -170,7 +199,8 @@ class SupervisedTrainer:
         return put_batch(batch, self.device)
 
     def train_step(self, state, noisy, clean):
-        return self._step(state, self.put(noisy), self.put(clean))
+        state, loss = self._step(state, self.put(noisy), self.put(clean))
+        return state, self.global_mean(loss)
 
     def train_epoch(self, state, train_loader, epoch: int = 0):
         """One pass over ``train_loader``'s (noisy, clean) batches; returns
@@ -195,9 +225,8 @@ class SupervisedTrainer:
         (``name`` overrides the file name).  Returns the path, or None."""
         if force or (epoch + 1) % self.checkpoint_every == 0:
             path = os.path.join(self.checkpoint_dir, name or self.checkpoint_name)
-            ckpt_io.save_pth(path, self.model.state_dict(), epoch=epoch + 1,
-                             extra=state.checkpoint_payload())
-            return path
+            return self.write_checkpoint(state, path, lambda p, extra: ckpt_io.save_pth(
+                p, self.model.state_dict(), epoch=epoch + 1, extra=extra))
         return None
 
     def load_checkpoint(self, state, checkpoint_path):
@@ -207,6 +236,7 @@ class SupervisedTrainer:
         if checkpoint_path is None or not os.path.isfile(checkpoint_path):
             return state, 0
         _, payload = ckpt_io.load_pth(checkpoint_path, self.model, allow_pickle=True)
+        self.after_load(state)
         epoch = int(payload.get("epoch", 0)) if payload else 0
         state.resume(payload, epoch * self.steps_per_epoch)
         return state, epoch
