@@ -318,7 +318,7 @@ def check_kernel(torch, device):
     the sampler's batch 16, ragged, border); returns per-shape records.
     Each launch at c in TC_WIDTHS, f32 or bf16, must go to the tensor-core
     variant; the CUDA-core kernel is also held, and timed, on the same
-    inputs."""
+    inputs, and the wide form timed beside them (``wide_ms``)."""
     from vub_image_denoising_tpu_torch.ops import fused_block as fb
 
     records = []
@@ -375,7 +375,11 @@ def check_kernel(torch, device):
                 extra = ""
                 if variant == "tc":
                     rec["cuda_core_ms"] = cuda_ms(torch, cuda_core, 5 if c == 32 else 3)
-                    extra = f", CUDA-core kernel {rec['cuda_core_ms']:.4f} ms"
+                    rec["wide_ms"] = cuda_ms(torch, lambda: fb._launch_wide(
+                        "fused_denoising_block", x, packed, n, h, w, c, c // 2,
+                        fb.wide_smem_bytes(x.element_size())), 10)
+                    extra = (f", CUDA-core kernel {rec['cuda_core_ms']:.4f} ms, wide form "
+                             f"{rec['wide_ms']:.4f} ms")
                     if dtype == torch.float32:
                         rec["cuda_core_bound_ms"] = bound_ms(shape, name, 4, "cuda_core")[0]
                         extra += f" (bound {rec['cuda_core_bound_ms']:.4f} ms at the f32 FMA peak)"
@@ -2025,12 +2029,24 @@ PARTIAL_SHAPES = [(1, 304, 64, 64), (1, 320, 32, 32), (1, 352, 32, 32), (1, 608,
 PARTIAL_PACKED_SHAPE = (1, 608, 32, 32)
 RDUNET152_SIDE = 128
 # RDUNet(152)'s widths on a 128^2 image, blocks per forward: c = 152 takes the
-# CUDA cores (below 256, not in TC_WIDTHS), the others the wide form.
+# fused tensor-core body in bf16 and the wide form in f32, the others the
+# wide form.
 RDUNET152_BLOCKS = [(152, 4), (304, 4), (608, 4), (1216, 2)]
 # Phase 17: the search space's new widths (base_filters 16 and 48) at batch 8
-# on 256^2 patches, and base 48's deepest block (the wide form).
+# on 256^2 patches, and base 48's deepest block (the wide form); each below
+# 256 also timed on the kernels its route does not take (the CUDA cores, the
+# wide form).  Then other bases' widths below 256 at batch 8, on the wide
+# form beside the CUDA cores: base 40's (16-byte channel runs) and base
+# 25's 25 and 50 (none: the wide form's element-wise loads); and kernel 2 at
+# the search's widths that trainable blocks run packed.
 SEARCH_SHAPES = [(8, 16, 256, 256), (8, 48, 256, 256), (8, 96, 128, 128), (8, 192, 64, 64),
                  (8, 384, 32, 32)]
+OTHER_WIDTH_SHAPES = [(8, 40, 256, 256), (8, 80, 128, 128), (8, 160, 64, 64),
+                      (8, 25, 256, 256), (8, 50, 128, 128)]
+SEARCH_PACKED_SHAPES = [(8, 16, 256, 256), (8, 48, 256, 256), (8, 96, 128, 128)]
+# Seconds per fixed trial (phase 19) when the blocks below 256 outside
+# {32, 64, 128, 256} ran on the CUDA-core kernel (NVIDIA H100 80GB HBM3, 700 W)
+FIXED_TRIAL_SEC_CUDA_CORE = {16: 2.1, 48: 22.6}
 # Phase 18: module-level remat, kernel-1 launches per train step (accumulation
 # 4): 14 forward per micro-batch, and one recompute per rematerialized block.
 REMAT_LAUNCHES = {False: 56, True: 112, "highres": 88}
@@ -2061,21 +2077,25 @@ def check_block_shapes(torch, device, shapes, label):
     bf16 (BF16_REL_TOL of max|y|), each one launch of the variant
     ``block_variant`` names; timed beside the plain cuDNN block (TF32 off)
     and the bound (f32 as 3xTF32, the least an f32-exact block can take on
-    this card; on the CUDA cores also at the f32 FMA peak).  Returns the
-    records."""
+    this card; on the CUDA cores also at the f32 FMA peak).  Below 256 the
+    kernels the route does not take (the CUDA-core kernel, the wide form)
+    are launched directly on the same input, uncounted, held to the same
+    tolerance and timed beside it (``alt_ms``); the fused route's tiles too
+    (``tile_sweep_ms``).  Returns the records."""
     from vub_image_denoising_tpu_torch.ops import fused_block as fb
 
     k1 = fb.fused_denoising_block
-    want_counts = {"tc_wide": (1, 1, 1, 0), "tc": (1, 1, 0, 0), "cuda_core": (1, 0, 0, 1)}
+    want_counts = {"tc_wide": (1, 1, 1, 0), "tc": (1, 1, 0, 0)}
     records = []
     for shape in shapes:
-        c = shape[1]
+        n, c, h, w = shape
         params = block_params(torch, c, seed=c, device=device)
         gen = torch.Generator(device=device).manual_seed(1)
         x32 = torch.randn(shape, generator=gen, device=device)
         ref32 = fb.fused_denoising_block_plain(x32, params)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
+            e = dtype.itemsize
             x = x32.to(dtype).contiguous(memory_format=torch.channels_last)
             kw = fb.pack_block_params(params, dtype, device)
             variant = fb.block_variant(dtype, c)
@@ -2085,64 +2105,115 @@ def check_block_shapes(torch, device, shapes, label):
             got = variant_counts(k1, before)
             plain = lambda v: fb.fused_denoising_block_plain(v, params)
             err_same, err_ref, ok, tol = held(torch, plain, y, x, ref32)
-            iters = 3 if variant == "cuda_core" and c * shape[2] * shape[3] > 2 ** 20 else 10
+            big = c * h * w > 2 ** 20
             rec = {"shape": shape, "dtype": name, "variant": variant, "max_abs_err": err_same,
                    "max_abs_err_vs_f32": err_ref, "ms": cuda_ms(torch, lambda: k1(x, params, kw),
-                                                                iters),
+                                                                10),
                    "plain_ms": cuda_ms(torch, lambda: plain(x), 5), "library_ms": None}
             rec["bound_ms"], rec["bound_by"] = bound_ms(shape, name, x.element_size())
-            if variant == "cuda_core" and dtype == torch.float32:
+            if dtype == torch.float32:
                 rec["cuda_core_bound_ms"] = bound_ms(shape, name, 4, "cuda_core")[0]
+            rec["tile"] = tile_report(shape, dtype)
             print(f"check {label} {shape} {name} ({variant}): max_abs_err vs plain({name}) "
                   f"{err_same:.3e}, vs reference {err_ref:.3e} ({tol}) -> "
                   f"{'ok' if ok else 'FAIL'}; kernel {rec['ms']:.4f} ms, plain (cuDNN) "
                   f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                   + (f", f32 FMA bound {rec['cuda_core_bound_ms']:.4f} ms"
                      if "cuda_core_bound_ms" in rec else "")
-                  + f", {block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s", flush=True)
+                  + f", {block_flops_tflops(shape, rec['ms']):.2f} TFLOP/s; {rec['tile']}",
+                  flush=True)
             if tuple(got.values()) != want_counts[variant]:
                 fail(f"kernel 1 at {shape} {name}: counted {got}, want {variant} once")
             if not ok:
                 fail(f"kernel 1 ({variant}) disagrees with the plain block at {shape} {name}")
+            alts = {}
+            if c < 256:
+                alts["cuda_core"] = lambda: fb._launch("fused_denoising_block", fb._library(),
+                                                       "fused_block", x, kw, n, h, w, c, c // 2)
+                alts["tc_wide"] = lambda: fb._launch_wide("fused_denoising_block", x, kw, n, h,
+                                                          w, c, c // 2, fb.wide_smem_bytes(e))
+            rec["alt_ms"], rec["alt_max_abs_err"] = {}, {}
+            for alt, fn in alts.items():
+                if alt == variant:
+                    continue
+                y_alt = fn()
+                torch.cuda.synchronize()
+                err_alt, _, ok_alt, _ = held(torch, plain, y_alt, x, ref32)
+                rec["alt_max_abs_err"][alt] = err_alt
+                rec["alt_ms"][alt] = cuda_ms(torch, fn, 3 if alt == "cuda_core" and big else 10)
+                if not ok_alt:
+                    fail(f"kernel 1's {alt} kernel disagrees with the plain block at {shape} "
+                         f"{name} (max abs err {err_alt})")
+            if variant == "tc":
+                rec["tile_sweep_ms"] = tile_sweep(torch, fb, x, kw)
+            print(f"time {label} {shape} {name}: route {variant} {rec['ms']:.4f} ms; "
+                  + "".join(f"{k} {v:.4f} ms, " for k, v in rec["alt_ms"].items())
+                  + f"cuDNN {rec['plain_ms']:.4f} ms", flush=True)
             records.append(rec)
         del params, x32, ref32, x, y, kw
     return records
 
 
-def partial_widths_main_path(torch, device):
-    """Phase 16: the wide form at PARTIAL_SHAPES, and the CUDA-core kernel at
-    RDUNet(152)'s c = 152 blocks on 128^2; kernel 2's wide form at
-    PARTIAL_PACKED_SHAPE unpacked equal to kernel 1 bit for bit; the f32
-    RDUNet(152) forward on a 128^2 image against the CPU's (SERVED_F32_TOL),
-    10 of its 14 blocks through the wide form, 4 (c = 152) on the CUDA
-    cores."""
-    from vub_image_denoising_tpu_torch.models import RDUNet
+def check_packed_shapes(torch, device, shapes, label):
+    """Kernel 2 at ``shapes``, f32 and bf16: one launch of kernel 1's
+    variant, and its output, unpacked, equal to kernel 1's on the same image
+    bit for bit; timed beside kernel 1.  Returns the records."""
     from vub_image_denoising_tpu_torch.ops import fused_block as fb
     from vub_image_denoising_tpu_torch.ops.packing import pack2x2, unpack2x2
 
+    k1, k2 = fb.fused_denoising_block, fb.fused_denoising_block_packed
+    records = []
+    for shape in shapes:
+        c = shape[1]
+        params = block_params(torch, c, seed=c, device=device)
+        pq = fb.pack_block_params_packed(params)
+        x32 = torch.randn(shape, generator=torch.Generator(device=device).manual_seed(1),
+                          device=device).contiguous(memory_format=torch.channels_last)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = x32.to(dtype)
+            xq = pack2x2(x)
+            kw2 = fb.kernel_weights_from_packed(pq, dtype)
+            kw1 = fb.pack_block_params(params, dtype, device)
+            before = counts(k2)
+            yq = k2(xq, pq, kw2)
+            torch.cuda.synchronize()
+            got = variant_counts(k2, before)
+            y1 = k1(x, params, kw1)
+            torch.cuda.synchronize()
+            diff = (unpack2x2(yq).float() - y1.float()).abs().max().item()
+            same = torch.equal(unpack2x2(yq), y1)
+            variant = fb.block_variant(dtype, c)
+            want = {"all": 1, "tc": 1, "wide": int(variant == "tc_wide"), "cuda_core": 0}
+            rec = {"shape": shape, "dtype": name, "variant": variant, "launches": got,
+                   "kernel1_max_abs_diff": diff,
+                   "ms": cuda_ms(torch, lambda: k2(xq, pq, kw2), 10),
+                   "kernel1_ms": cuda_ms(torch, lambda: k1(x, params, kw1), 10)}
+            print(f"check packed {label} {shape} {name} ({variant}): unpacked vs kernel 1 "
+                  f"max abs diff {diff} (must be 0.0); launches {got}; kernel 2 "
+                  f"{rec['ms']:.4f} ms, kernel 1 {rec['kernel1_ms']:.4f} ms", flush=True)
+            if not same or got != want:
+                fail(f"kernel 2 at {shape} {name}: diff {diff}, counted {got}, want {want}")
+            records.append(rec)
+        del params, pq, x32, x, xq
+    return records
+
+
+def partial_widths_main_path(torch, device):
+    """Phase 16: the wide form at PARTIAL_SHAPES, and RDUNet(152)'s c = 152
+    blocks on 128^2 (the fused tensor-core body in bf16, the wide form in
+    f32); kernel 2's wide form at
+    PARTIAL_PACKED_SHAPE unpacked equal to kernel 1 bit for bit; the f32
+    RDUNet(152) forward on a 128^2 image against the CPU's (SERVED_F32_TOL),
+    all 14 blocks on the tensor cores, none on the CUDA cores (in f32 the
+    c = 152 blocks take the wide form too)."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
+
     out = {"per_shape": check_block_shapes(
         torch, device, PARTIAL_SHAPES + [(1, 152, RDUNET152_SIDE, RDUNET152_SIDE)], "width")}
-    k1, k2 = fb.fused_denoising_block, fb.fused_denoising_block_packed
-    shape = PARTIAL_PACKED_SHAPE
-    params = block_params(torch, shape[1], seed=shape[1], device=device)
-    pq = fb.pack_block_params_packed(params)
-    x32 = torch.randn(shape, generator=torch.Generator(device=device).manual_seed(1),
-                      device=device).contiguous(memory_format=torch.channels_last)
-    out["packed"] = []
-    for dtype in (torch.float32, torch.bfloat16):
-        x = x32.to(dtype)
-        before = counts(k2)
-        yq = k2(pack2x2(x), pq)
-        torch.cuda.synchronize()
-        got = variant_counts(k2, before)
-        diff = (unpack2x2(yq).float() - k1(x, params).float()).abs().max().item()
-        torch.cuda.synchronize()
-        print(f"check packed partial wide {shape} {dtype}: unpacked vs kernel 1 max abs diff "
-              f"{diff} (must be 0.0); {got}", flush=True)
-        if diff != 0 or (got["all"], got["wide"]) != (1, 1):
-            fail(f"kernel 2's wide form at {shape} {dtype}: diff {diff}, counted {got}")
-        out["packed"].append({"shape": shape, "dtype": str(dtype).split(".")[-1],
-                              "kernel1_max_abs_diff": diff, "launches": got})
+    out["packed"] = check_packed_shapes(torch, device, [PARTIAL_PACKED_SHAPE], "partial width")
+    k1 = fb.fused_denoising_block
 
     model = RDUNet(3, 152, generator=torch.Generator().manual_seed(0)).eval()
     x = torch.rand(1, 3, RDUNET152_SIDE, RDUNET152_SIDE,
@@ -2160,8 +2231,9 @@ def partial_widths_main_path(torch, device):
                             "forward_ms": {"f32": cuda_ms(torch, lambda: gpu(xd), 5),
                                            "bf16": cuda_ms(torch,
                                                            lambda: gpu(xd.to(torch.bfloat16)), 5)}}
-    wide = sum(n for c, n in RDUNET152_BLOCKS if c > 256)
-    want_counts = {"all": 14, "tc": wide, "wide": wide, "cuda_core": 14 - wide}
+    wide = sum(n for c, n in RDUNET152_BLOCKS
+               if fb.block_variant(torch.float32, c) == "tc_wide")
+    want_counts = {"all": 14, "tc": 14, "wide": wide, "cuda_core": 0}
     print(f"RDUNet(152) forward 1x{RDUNET152_SIDE}^2: f32 vs the CPU forward max abs err "
           f"{err:.3e} (<= {SERVED_F32_TOL}); launches {got} (want {want_counts}); f32 "
           f"{out['rdunet152']['forward_ms']['f32']:.3f} ms, bf16 "
@@ -2266,6 +2338,7 @@ def search_main_path(torch, device):
     trial split by variant (each trial's steps and samplers, all through the
     kernels), seconds per trial."""
     from vub_image_denoising_tpu_torch.data.loader import load_data
+    from vub_image_denoising_tpu_torch.ops import fused_block as fb
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
     from vub_image_denoising_tpu_torch.search import gan_search, hyperparams
     from vub_image_denoising_tpu_torch.search.optuna_compat import TrialPruned
@@ -2334,11 +2407,12 @@ def search_main_path(torch, device):
             rec, forwards = out["fixed"][-1], want_launches(trial) // 14
             base = values["base_filters"]
             widths = [base, 2 * base, 4 * base, 8 * base]
-            cc = sum(4 if level < 3 else 2 for level, c in enumerate(widths)
-                     if c < 256 and c not in (32, 64, 128, 256))
-            wide = sum(4 if level < 3 else 2 for level, c in enumerate(widths) if c > 256)
-            want = {"all": 14 * forwards, "tc": (14 - cc) * forwards, "wide": wide * forwards,
-                    "cuda_core": cc * forwards}
+            wide = sum(4 if level < 3 else 2 for level, c in enumerate(widths)
+                       if fb.block_variant(torch.float32, c) == "tc_wide")
+            want = {"all": 14 * forwards, "tc": 14 * forwards, "wide": wide * forwards,
+                    "cuda_core": 0}
+            print(f"fixed trial base {base}: {rec['sec']:.1f} s (with CUDA-core blocks: "
+                  f"{FIXED_TRIAL_SEC_CUDA_CORE[base]} s), launches {rec['launches']}", flush=True)
             if rec["launches"] != want:
                 fail(f"fixed trial base {base}: launches {rec['launches']}, want {want}")
 
@@ -3083,7 +3157,11 @@ def main():
     phase_t0, phase_sec = time.perf_counter(), {}
     partial = partial_widths_main_path(torch, device)
     phase_sec[16] = time.perf_counter() - phase_t0
-    search_widths = check_block_shapes(torch, device, SEARCH_SHAPES, "search width")
+    search_widths = {"kernel1": check_block_shapes(torch, device, SEARCH_SHAPES, "search width"),
+                     "other_widths": check_block_shapes(torch, device, OTHER_WIDTH_SHAPES,
+                                                        "other width"),
+                     "kernel2": check_packed_shapes(torch, device, SEARCH_PACKED_SHAPES,
+                                                    "search width")}
     phase_sec[17] = time.perf_counter() - phase_t0 - sum(phase_sec.values())
     remat = remat_main_path(torch, device)
     phase_sec[18] = time.perf_counter() - phase_t0 - sum(phase_sec.values())
@@ -3185,7 +3263,8 @@ def main():
                     "(tensor-core variant, 3xTF32); bf16 under variants",
             "variants": variants,
             "per_shape": per_shape(records, ("cuda_core_ms", "cuda_core_bound_ms",
-                                             "cuda_core_max_abs_err", "tile_sweep_ms")),
+                                             "cuda_core_max_abs_err", "tile_sweep_ms",
+                                             "wide_ms")),
             "launches_by_path": {"train": train_launches, "serve": serve_launches,
                                  "diffusion_serve": diffusion_serve_launches,
                                  "diffusion_train": diffusion_train_launches,

@@ -226,9 +226,30 @@ def test_cuda_tc_kernel_matches_plain(cuda, shape, dtype):
     _check(y, x, params)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 16, 37, 45), (1, 48, 20, 19), (2, 48, 64, 64),
+                                   (1, 96, 13, 11), (1, 152, 13, 11), (1, 192, 9, 11)])
+def test_cuda_tc_kernel_padded_widths(cuda, shape, dtype):
+    """The search's and RDUNet(152)'s widths below 256 (c = 16, 48, 96, 152,
+    192: the fused body with padded inner channels, or the wide form) on
+    ragged images, and c = 48 at 64^2: one tensor-core launch each, held to
+    the plain block."""
+    params = _block(shape[1], cuda, seed=3)
+    x = _input(shape, cuda, dtype, seed=4)
+    counter = fb.fused_denoising_block
+    before = (counter.launches, counter.tc_launches, counter.wide_launches)
+    y = counter(x, params)
+    torch.cuda.synchronize()
+    wide = fb.block_variant(x.dtype, shape[1]) == "tc_wide"
+    assert (counter.launches, counter.tc_launches, counter.wide_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + wide)
+    _check(y, x, params)
+
+
 @pytest.mark.parametrize("dtype,c,tile", [
-    (dtype, c, t) for dtype, itemsize in (("float32", 4), ("bfloat16", 2))
-    for c in fb.TC_WIDTHS for t in fb.tc_tiles(c, itemsize)])
+    (dtype, c, t) for dtype in ("float32", "bfloat16")
+    for c in fb.TC_WIDTHS[getattr(torch, dtype)]
+    for t in fb.tc_tiles(c, getattr(torch, dtype).itemsize)])
 def test_cuda_tc_kernel_every_tile(cuda, dtype, c, tile):
     """Each (dtype, c, tile) the kernel is built for, forced, on a ragged image."""
     params = _block(c, cuda, seed=6)
@@ -252,13 +273,15 @@ def test_cuda_tc_kernel_border_padding(cuda, dtype):
     assert not torch.allclose(y[0, :, 0, 12].float(), y[0, :, 12, 12].float(), atol=1e-3)
 
 
-@pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 1), ("float32", 16, 0),
-                                         ("bfloat16", 16, 0), ("bfloat16", 512, 1),
-                                         ("bfloat16", 1024, 1), ("bfloat16", 64, 1)])
+@pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 1), ("float32", 18, 1),
+                                         ("bfloat16", 18, 1), ("bfloat16", 512, 1),
+                                         ("bfloat16", 1024, 1), ("bfloat16", 64, 1),
+                                         ("float32", 16, 1), ("bfloat16", 16, 1)])
 def test_cuda_variant_counters(cuda, dtype, c, tc):
-    """f32 and bf16 at c in TC_WIDTHS, and at c = 512 and 1024 (the wide
-    form), count as a tensor-core launch; at other widths they launch the
-    CUDA-core kernel.  Each output is held against the plain version."""
+    """f32 and bf16 at c in TC_WIDTHS, at c = 512 and 1024, and at c = 18
+    (36 bytes of bf16 channels, no 16-byte run: the wide form's element-wise
+    loads) count as a tensor-core launch.  Each output is held against the
+    plain version."""
     params = _block(c, cuda)
     x = torch.randn(1, c, 10, 12, device=cuda).to(getattr(torch, dtype)).contiguous(
         memory_format=torch.channels_last)
@@ -283,14 +306,16 @@ def _cuda_core_at_tc_width(shape, device, dtype):
 @pytest.mark.parametrize("shape", [(2, 32, 37, 45), (1, 64, 20, 19), (1, 256, 9, 11)])
 def test_cuda_core_kernel_bf16_at_tc_widths(cuda, shape):
     """The CUDA-core kernel's bf16 build, forced at widths the wrapper sends
-    to the tensor cores: the same arithmetic serves bf16 at every other width."""
+    to the tensor cores (it takes no width itself; chip_smoke.py times it beside
+    the kernels that replaced it)."""
     _cuda_core_at_tc_width(shape, cuda, "bfloat16")
 
 
 @pytest.mark.parametrize("shape", [(2, 32, 37, 45), (1, 64, 20, 19), (1, 256, 9, 11)])
 def test_cuda_core_kernel_f32_at_tc_widths(cuda, shape):
     """The CUDA-core kernel's f32 build, forced at widths the wrapper sends
-    to the tensor cores: the same arithmetic serves f32 at every other width."""
+    to the tensor cores (it takes no width itself; chip_smoke.py times it beside
+    the kernels that replaced it)."""
     _cuda_core_at_tc_width(shape, cuda, "float32")
 
 
@@ -455,9 +480,26 @@ def test_cuda_packed_tc_kernel_matches_plain_and_kernel_1(cuda, shape, dtype):
     assert torch.equal(unpack2x2(yq), fb.fused_denoising_block(x, params))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 16, 38, 46), (1, 48, 20, 18), (1, 96, 14, 10)])
+def test_cuda_packed_tc_kernel_padded_widths(cuda, shape, dtype):
+    """Kernel 2 at the search's widths it runs packed (c = 16, 48, 96: the
+    fused body, the wide form): one tensor-core launch, and unpacked equal
+    to kernel 1 bit for bit."""
+    params, pq, x, xq = _packed_case(shape, cuda, dtype, seed=5)
+    counter = fb.fused_denoising_block_packed
+    before, tc_before = counter.launches, counter.tc_launches
+    yq = counter(xq, pq)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.tc_launches) == (before + 1, tc_before + 1)
+    _check_packed(yq, xq, pq)
+    assert torch.equal(unpack2x2(yq), fb.fused_denoising_block(x, params))
+
+
 @pytest.mark.parametrize("dtype,c,tile", [
-    (dtype, c, t) for dtype, itemsize in (("float32", 4), ("bfloat16", 2))
-    for c in fb.TC_WIDTHS for t in fb.tc_tiles(c, itemsize)])
+    (dtype, c, t) for dtype in ("float32", "bfloat16")
+    for c in fb.TC_WIDTHS[getattr(torch, dtype)]
+    for t in fb.tc_tiles(c, getattr(torch, dtype).itemsize)])
 def test_cuda_packed_tc_kernel_every_tile(cuda, dtype, c, tile):
     """Each (dtype, c, tile) kernel 2 is built for, forced, on an even
     ragged image, against kernel 1 forced to the same tile."""
@@ -490,12 +532,13 @@ def test_cuda_packed_tc_kernel_border_padding(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype,c,tc", [("float32", 32, 1), ("bfloat16", 64, 1),
-                                         ("float32", 16, 0), ("bfloat16", 16, 0),
-                                         ("float32", 512, 1), ("bfloat16", 512, 1)])
+                                         ("float32", 18, 1), ("bfloat16", 18, 1),
+                                         ("float32", 512, 1), ("bfloat16", 512, 1),
+                                         ("float32", 16, 1), ("bfloat16", 48, 1)])
 def test_cuda_packed_variant_counters(cuda, dtype, c, tc):
-    """Kernel 2 at c in TC_WIDTHS, and at c = 512 (the wide form), counts as
-    a tensor-core launch; at c = 16 it launches fused_block_packed.cu on the
-    CUDA cores.  Each output is held against the plain version."""
+    """Kernel 2 at c in TC_WIDTHS, and at c = 18, 48 and 512 (the wide
+    form), counts as a tensor-core launch.  Each output is held against the
+    plain version."""
     _, pq, _, xq = _packed_case((1, c, 10, 12), cuda, dtype)
     counter = fb.fused_denoising_block_packed
     before, tc_before = counter.launches, counter.tc_launches

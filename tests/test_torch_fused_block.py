@@ -104,13 +104,15 @@ def test_tile_fits_shared_memory(c, itemsize):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,want", [(512, "tc_wide"), (1024, "tc_wide"), (16, "cuda_core"),
-                                    (48, "cuda_core"), (256, "tc"), (304, "tc_wide"),
+@pytest.mark.parametrize("c,want", [(512, "tc_wide"), (1024, "tc_wide"), (16, "tc"),
+                                    (48, "tc_wide"), (256, "tc"), (304, "tc_wide"),
                                     (320, "tc_wide"), (608, "tc_wide"), (1216, "tc_wide")])
 def test_wide_variant_rule(dtype, c, want):
     """c > 256 (RDUNet-64's and RDUNet-128's 512 and 1024) takes the wide
-    form in both dtypes, its tile and shared memory; c = 16 and 48 stay on
-    the CUDA cores; kernel 2 takes kernel 1's variant at the unpacked shape."""
+    form in both dtypes, its tile and shared memory; so does the search's
+    c = 48, where it was measured faster than the fused body; c = 16 takes
+    the fused body; kernel 2 takes kernel 1's variant at the unpacked
+    shape."""
     assert fb.block_variant(dtype, c) == want
     got = fb.block_tile(dtype, 2, c, 20, 36, 132)
     assert got[0] == want
@@ -127,21 +129,29 @@ def rdunet_widths(base):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_every_rdunet_width_has_a_kernel(dtype):
     """No width an RDUNet of base 1-160 reaches lacks a kernel: block_tile
-    returns a tile that fits shared memory for each, in both dtypes, and
-    every c > 256 (whatever c is modulo the 64-channel chunk or the 16-byte
-    piece) takes the wide form, every c < 256 outside TC_WIDTHS the CUDA
-    cores."""
+    returns a tile that fits shared memory for each, in both dtypes.  The
+    fused tensor-core body takes TC_WIDTHS[dtype] (every tile it may pick
+    fits); every other width takes the wide form, whatever c is modulo the
+    64-channel chunk or the 16-byte piece (c = 48, 96, 192 and 40, 80, 160
+    with 16-byte channel runs, 25 and 50 without, 304 ... 1216 above 256);
+    none stays on the CUDA cores."""
     widths = sorted({c for base in range(1, 161) for c in rdunet_widths(base)})
+    e = dtype.itemsize
     for c in widths:
         variant, th, tw, smem = fb.block_tile(dtype, 8, c, 32, 32, 132)
         assert smem <= 232448, c
-        if c > 256:
-            assert (variant, (th, tw)) == ("tc_wide", fb.WIDE_TILE), c
-        elif c in fb.TC_WIDTHS:
-            assert variant == "tc", c
+        if c in fb.TC_WIDTHS[dtype]:
+            assert variant == "tc" and smem == fb.tc_smem_bytes(c, th, tw, e), c
+            assert all(fb.tc_smem_bytes(c, *t, e) <= 232448 for t in fb.tc_tiles(c, e))
         else:
-            assert variant == "cuda_core", c
+            assert (variant, (th, tw)) == ("tc_wide", fb.WIDE_TILE), c
     assert {c for c in widths if c > 256 and c % (2 * fb.WIDE_N)} >= {304, 352, 608, 1216}
+    by_variant = {v: {c for c in widths if fb.block_variant(dtype, c) == v}
+                  for v in ("tc", "tc_wide", "cuda_core")}
+    assert by_variant["tc"] == set(fb.TC_WIDTHS[dtype])
+    assert {48, 96, 192, 40, 80, 160, 25, 50} <= by_variant["tc_wide"]
+    assert (152 in by_variant["tc"]) == (dtype == torch.bfloat16)
+    assert by_variant["cuda_core"] == set()
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])

@@ -95,8 +95,8 @@ def _built_cases(source):
 
 
 def _pickable_cases():
-    return {(name, c, *t) for name, itemsize in (("bf16", 2), ("f32", 4))
-            for c in fb.TC_WIDTHS for t in fb.tc_tiles(c, itemsize)}
+    return {(name, c, *t) for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))
+            for c in fb.TC_WIDTHS[dtype] for t in fb.tc_tiles(c, dtype.itemsize)}
 
 
 def test_tc_source_builds_every_tile_the_picker_may_pick():
@@ -125,21 +125,26 @@ def test_packed_tile_is_kernel_1s_at_the_unpacked_shape(shape):
             assert got[0] == "tc"
 
 
-@pytest.mark.parametrize("c", [16, 48])
-def test_packed_tile_outside_tc_widths_stays_on_the_cuda_cores(c):
+@pytest.mark.parametrize("c", [25, 50])
+def test_packed_tile_outside_tc_widths_takes_the_wide_form(c):
+    """Base 25's 25 and 50, whose channels come in no 16-byte run in either
+    dtype: kernel 2 takes the wide form (its element-wise loads), as
+    kernel 1 does, with its tile and shared memory."""
     for dtype in (torch.bfloat16, torch.float32):
-        variant, th, tw, smem = fb.packed_block_tile(dtype, 1, 4 * c, 5, 6, H100_SMS)
-        assert variant == "cuda_core"
-        assert (th, tw) == fb.pick_tile(c // 2, dtype.itemsize)
-        assert smem == fb.smem_bytes(c // 2, th, tw, dtype.itemsize)
+        got = fb.packed_block_tile(dtype, 1, 4 * c, 5, 6, H100_SMS)
+        assert got == fb.block_tile(dtype, 1, c, 10, 12, H100_SMS)
+        assert got == ("tc_wide", *fb.WIDE_TILE, fb.wide_smem_bytes(dtype.itemsize))
 
 
 @pytest.mark.parametrize("dtype,c,want", [
     (torch.bfloat16, 32, "tc"), (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
-    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "cuda_core"),
+    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "tc"),
     (torch.bfloat16, 512, "tc_wide"), (torch.float32, 32, "tc"),
-    (torch.float32, 256, "tc"), (torch.float32, 16, "cuda_core"),
-    (torch.float32, 512, "tc_wide"),
+    (torch.float32, 256, "tc"), (torch.float32, 16, "tc"),
+    (torch.float32, 512, "tc_wide"), (torch.bfloat16, 152, "tc"),
+    (torch.float32, 152, "tc_wide"), (torch.bfloat16, 48, "tc_wide"),
+    (torch.float32, 192, "tc_wide"), (torch.bfloat16, 25, "tc_wide"),
+    (torch.float32, 50, "tc_wide"),
 ])
 def test_block_variant_rule(dtype, c, want):
     assert fb.block_variant(dtype, c) == want
@@ -224,11 +229,12 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.mark.parametrize("c", fb.TC_WIDTHS)
+@pytest.mark.parametrize("c", fb.TC_WIDTHS[torch.float32])
 def test_3xtf32_block_meets_the_f32_bar(one_thread, c):
-    """At every RDUNet-32 width, three TF32 products hold the block to the
-    f32 plain version at atol = rtol = 1e-4 (chip_smoke.py's F32_TOL); one
-    TF32 product misses that bar."""
+    """At every width the f32 tensor-core body runs (RDUNet-32's, and 16),
+    three TF32 products hold the block to the f32 plain version at atol =
+    rtol = 1e-4 (chip_smoke.py's F32_TOL); one TF32 product misses that
+    bar."""
     block = DenoisingBlock(c, c // 2, c, generator=torch.Generator().manual_seed(c))
     params = {k: v.detach() for k, v in block.named_parameters()}
     x = torch.from_numpy(np.random.default_rng(c).standard_normal((1, c, 8, 8), np.float32))

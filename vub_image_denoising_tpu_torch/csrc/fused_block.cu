@@ -13,7 +13,9 @@
 // of bytes (3.35 TB/s), so the block is compute-bound at every scale.
 //
 // This first version runs the convs on CUDA cores with f32 FMA (no tensor
-// cores), which is what exact-f32 parity needs and bf16 accepts; the halo
+// cores).  The wrapper routes no width to it any more (ops/fused_block.py
+// block_variant: the tensor-core body or the wide form); chip_smoke.py and
+// the card tests launch it directly beside them.  The halo
 // recompute costs 1.24x (16x16 tiles) to 1.53x (8x8) of the block's FLOPs,
 // 2.29x for the 4x4 tile of f32 at c = 256.
 // The math is in fused_block.cuh.

@@ -20,8 +20,9 @@
 //
 // Bound on an H100 SXM: the same 85.5*c^2*H*W*N FLOP and the same bytes as
 // kernel 1, so compute-bound.  This kernel runs on the CUDA cores with f32
-// FMA and serves the widths outside TC_WIDTHS (c = 16, 512, ...); at
-// c in {32, 64, 128, 256} the wrapper launches fused_block_packed_tc.cu.
+// FMA.  The wrapper routes no width to it any more (fused_block_packed_tc.cu
+// or the wide form take every width); chip_smoke.py and the card tests
+// launch it directly beside them.
 
 #include <cuda_runtime.h>
 

@@ -3,10 +3,11 @@
 //
 // Replaces the Pallas TPU kernel `fused_denoising_block_packed`
 // (vub_image_denoising_tpu/ops/fused_block.py:360) for bf16 and f32 inputs
-// with c in {32, 64, 128, 256}; other widths stay on the CUDA-core kernel
-// (fused_block_packed.cu).  It keeps the TPU kernel's contract: x and y are
-// even-packed (n, h/2, w/2, 4c), packed channel (a*2+b)*c + k holding image
-// pixel (2I+a, 2J+b), and unpack2x2(y) equals kernel 1 on unpack2x2(x).
+// with c in ops/fused_block.py TC_WIDTHS (16, 32, 64, 128, 256, and 152 in
+// bf16); every other width takes the wide form (fused_block_wide_tc.cu).  It
+// keeps the TPU kernel's contract: x and y are even-packed (n, h/2, w/2, 4c),
+// packed channel (a*2+b)*c + k holding image pixel (2I+a, 2J+b), and
+// unpack2x2(y) equals kernel 1 on unpack2x2(x).
 //
 // Design: the packed layout was a TPU device (it fills 128 lanes and meets
 // the DMA lane rule); Hopper needs neither, and one image pixel's c
@@ -28,10 +29,13 @@
 // Every (T, c, th, tw) that ops/fused_block.py TC_TILES may pick, as in
 // fused_block_tc.cu; a CPU test holds the two lists together.
 #define FB_TC_CASES(X) \
+    X(bf16, 16, 16, 16) X(bf16, 16, 8, 8) X(bf16, 16, 4, 4) \
     X(bf16, 32, 16, 16) X(bf16, 32, 8, 8) X(bf16, 32, 4, 4) \
     X(bf16, 64, 16, 16) X(bf16, 64, 8, 8) X(bf16, 64, 4, 4) \
     X(bf16, 128, 8, 8) X(bf16, 128, 4, 4) \
+    X(bf16, 152, 8, 8) X(bf16, 152, 4, 4) \
     X(bf16, 256, 8, 8) X(bf16, 256, 4, 4) \
+    X(f32, 16, 16, 16) X(f32, 16, 8, 8) X(f32, 16, 4, 4) \
     X(f32, 32, 16, 16) X(f32, 32, 8, 8) X(f32, 32, 4, 4) \
     X(f32, 64, 8, 8) X(f32, 64, 4, 4) \
     X(f32, 128, 8, 8) X(f32, 128, 4, 4) \

@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas TPU kernel `fused_denoising_block`
 // (vub_image_denoising_tpu/ops/fused_block.py:193) for bf16 and f32 inputs
-// with c in {32, 64, 128, 256}; other widths stay on the CUDA-core kernel
-// (fused_block.cu).  The kernel is the body of fused_block_tc.cuh with
-// PACKED = false; its head comment has the design.
+// with c in ops/fused_block.py TC_WIDTHS (16, 32, 64, 128, 256, and 152 in
+// bf16); every other width takes the wide form (fused_block_wide_tc.cu).
+// The kernel is the body of fused_block_tc.cuh with PACKED = false; its head
+// comment has the design.
 //
 // Bound on an H100 SXM: 85.5*c^2*H*W*N FLOP per launch (45.9 GFLOP for every
 // RDUNet-32 block at batch 8, 256^2).  bf16: 46 us at the 989 TFLOP/s dense
@@ -19,10 +20,13 @@
 // Every (T, c, th, tw) that ops/fused_block.py TC_TILES may pick (the tiles
 // that fit in shared memory); a CPU test holds the two lists together.
 #define FB_TC_CASES(X) \
+    X(bf16, 16, 16, 16) X(bf16, 16, 8, 8) X(bf16, 16, 4, 4) \
     X(bf16, 32, 16, 16) X(bf16, 32, 8, 8) X(bf16, 32, 4, 4) \
     X(bf16, 64, 16, 16) X(bf16, 64, 8, 8) X(bf16, 64, 4, 4) \
     X(bf16, 128, 8, 8) X(bf16, 128, 4, 4) \
+    X(bf16, 152, 8, 8) X(bf16, 152, 4, 4) \
     X(bf16, 256, 8, 8) X(bf16, 256, 4, 4) \
+    X(f32, 16, 16, 16) X(f32, 16, 8, 8) X(f32, 16, 4, 4) \
     X(f32, 32, 16, 16) X(f32, 32, 8, 8) X(f32, 32, 4, 4) \
     X(f32, 64, 8, 8) X(f32, 64, 4, 4) \
     X(f32, 128, 8, 8) X(f32, 128, 4, 4) \

@@ -6,7 +6,12 @@
 // and :360) at every width above 256 (c = 512 and 1024: RDUNet-64's and
 // RDUNet-128's deepest blocks; 304, 384, 608, 1216, ...: the other bases'),
 // where o0..o2 of even a 4x4 tile do not fit in shared memory (409,600 bytes
-// in f32 at c = 1024, against 232,448).
+// in f32 at c = 1024, against 232,448); and at every width below 256
+// outside ops/fused_block.py TC_WIDTHS (the search's 48, 96, 192;
+// RDUNet(152)'s 152 in f32; other bases' 40, 80, 160, ..., and 25, 50, ...
+// on the element-wise loads), where it was measured 1.7-5x faster than the
+// fused tensor-core body (two thread blocks per SM and no halo recompute,
+// against one and 1.24-2.29x) and 1.5-7x faster than the CUDA-core kernel.
 //
 // Design.  The block runs as four launches of one implicit-GEMM 3x3 conv
 // kernel, templated on the element type T, the level L, the layout PACKED

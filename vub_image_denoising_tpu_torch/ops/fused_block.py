@@ -14,30 +14,40 @@ f32, one cast to the compute dtype (x's dtype, f32 or bf16), PReLU in the
 compute dtype, o0..o2 kept in it, residual added in it.  Conv weights are cast
 to the compute dtype, bias and alpha stay f32 until used.
 
-Two kernels compute it; the choice between them is static (``block_variant``):
+Two tensor-core kernels compute it; the choice between them is static
+(``block_variant``):
 
-- f32 and bf16 with c in ``TC_WIDTHS`` (32, 64, 128, 256: every RDUNet-32
-  width) launch ``csrc/fused_block_tc.cu``: an implicit GEMM per level on the
-  tensor cores, operands staged with ``cp.async``, with a grid-aware tile
-  (``pick_tile_tc``).  bf16 runs ``mma.sync`` bf16 -> f32; f32 runs
+- f32 and bf16 with c in ``TC_WIDTHS[dtype]`` (RDUNet-32's 32, 64, 128, 256;
+  the search's 16; in bf16 also RDUNet(152)'s 152) launch
+  ``csrc/fused_block_tc.cu``: an implicit GEMM per level on the tensor cores,
+  operands staged with ``cp.async``, with a grid-aware tile
+  (``pick_tile_tc``); inner channels that do not fill whole mma steps are
+  zero-padded inside the kernel (``tc_inner_p``).  bf16 runs
+  ``mma.sync`` bf16 -> f32; f32 runs
   error-compensated TF32 (3xTF32: each operand split into two TF32 values,
   three products per pair), which keeps exact-f32 accuracy, where one TF32
   product would not;
-- f32 and bf16 at every c > 256 (512, 1024: RDUNet-64's and RDUNet-128's;
-  304, 384, 608, 1216, ...: the other bases') launch the wide form,
+- f32 and bf16 at every other width launch the wide form: every c > 256
+  (512, 1024: RDUNet-64's and RDUNet-128's; 304, 384, 608, 1216, ...: the
+  other bases'), and below 256 the search's 48, 96, 192, f32 152, and the
+  other bases' widths (40, 80, 160 with 16-byte channel runs; 25, 50, ...
+  without, on its element-wise loads), where it was measured faster than
+  the fused body or the CUDA-core kernel.  The wide form is
   ``csrc/fused_block_wide_tc.cu``: the same tensor-core arithmetic as four
   launches of one implicit-GEMM conv (an 8 x 16 pixel tile by a chunk of
   ``WIDE_N`` output channels, the last chunk and the last K slab partial
   where c is no multiple of them, K streamed in slabs), with o0..o2 in a device
   workspace (``wide_workspace_shape``) instead of shared memory, so its
   shared memory (``wide_smem_bytes``) does not grow with c.  Counted as a
-  tensor-core launch, and in ``.wide_launches``;
-- f32 and bf16 at any other width (c = 16, 48, ...) launch
-  ``csrc/fused_block.cu`` on the CUDA cores, tile ``pick_tile``.
+  tensor-core launch, and in ``.wide_launches``.
 
 The rule has no option and no fallback: a dtype and width decide the kernel.
+The CUDA-core kernel of the first port, ``csrc/fused_block.cu`` (tile
+``pick_tile``), takes no width any more; ``chip_smoke.py`` and the card
+tests launch it directly (``_library``) to time and check it beside the
+kernels that replaced it.
 
-The first two and the CUDA-core kernel give each thread block one (image,
+The fused body and the CUDA-core kernel give each thread block one (image,
 th x tw output tile) and keep o0..o2 in shared memory over a halo pyramid of
 th+6 -> th+4 -> th+2 -> th rows; o0..o2 never reach device memory.  A build or launch error raises; nothing
 falls back.  Bound on an H100 SXM: 85.5*c^2*H*W*N FLOP per launch
@@ -56,10 +66,10 @@ node that launches the kernel when the exported program runs
 
 ``fused_denoising_block_packed`` is the same block on the 2x2 even-packed
 layout of ``ops/packing.py`` (kernel 2), by the same static rule: at c in
-``TC_WIDTHS`` the same tensor-core body with the packed pixel address
+``TC_WIDTHS[dtype]`` the same tensor-core body with the packed pixel address
 (``csrc/fused_block_packed_tc.cu``, from ``csrc/fused_block_tc.cuh``, as
-kernel 1's ``csrc/fused_block_tc.cu`` is), at other widths
-``csrc/fused_block_packed.cu`` on the CUDA cores; see its docstring.
+kernel 1's ``csrc/fused_block_tc.cu`` is), elsewhere the wide form with the
+packed pixel address; see its docstring.
 """
 
 import ctypes
@@ -72,6 +82,7 @@ import torch.nn.functional as F
 from .cuda_build import load_library
 from .packing import pack_conv3x3_weights, pack_vec, packed_taps_conv, reshift2d
 
+# The CUDA-core kernel (csrc/fused_block.cu, launched directly only).
 # Candidate output tiles (rows, cols), largest first.  The first that fits two
 # blocks on one SM (2 x 113 KB of its 228 KB) is taken, else the first that fits
 # one block's 227 KB.
@@ -95,26 +106,55 @@ def pick_tile(inner: int, itemsize: int):
 
 
 # The tensor-core kernel (csrc/fused_block_tc.cu).  For element size e its
-# shared memory holds o0..o2 (a position's inner channels, padded by 16
-# bytes), x in slabs of 64 bytes of channels over the (th+8) x (tw+8) region
-# (two buffers when c spans more than one slab), and two weight stages of 32 K
-# rows (3 taps when N <= 64, else 1) of N + 8 columns.
-TC_WIDTHS = (32, 64, 128, 256)
+# shared memory holds o0..o2 (a position's ``tc_inner_p`` channels, padded by
+# 16 bytes), x in slabs of 64 bytes of channels over the (th+8) x (tw+8)
+# region (two buffers when c spans more than one slab), and two weight stages
+# of 32 K rows (3 taps when N <= 64, else 1) of N + 8 columns (N + 16 when N
+# is an odd number of 8-column tiles), N a level's ``tc_np`` outputs.
+#
+# TC_WIDTHS: the widths each dtype runs on it (its FB_TC_CASES): RDUNet-32's,
+# and below 256 those at which chip_smoke.py's phases 16-17 measured it
+# faster than the wide form on an H100 at the search's and RDUNet(152)'s
+# shapes: c = 16 in both dtypes (8 x 16 x 256^2: f32 0.95 ms against 1.73,
+# bf16 0.33 against 0.42) and 152 in bf16 (1 x 152 x 128^2: 0.70 against
+# 0.75).  At c = 48, 96, 192 in both dtypes and at 152 in f32 the wide form
+# was 1.7-5x faster: there this kernel fits one thread block per SM (8x8
+# tiles in f32, 4x4 at f32 192) and recomputes 1.24-2.29x the work over its
+# halo, where the wide form fits two and recomputes nothing; so they take
+# the wide form (block_variant), as every width outside TC_WIDTHS does.
+TC_WIDTHS = {torch.bfloat16: (16, 32, 64, 128, 152, 256),
+             torch.float32: (16, 32, 64, 128, 256)}
 TC_TILES = ((16, 16), (8, 8), (4, 4))
+
+
+def tc_inner_p(c: int, itemsize: int) -> int:
+    """The inner channels the tensor-core kernel keeps for o0..o2: c/2
+    rounded up to one mma k step of 32 bytes (16 bf16, 8 f32).  The padded
+    channels hold zeros and meet zero weight rows, so every sum is the
+    unpadded block's; mirrors ``tc_inner_p`` in ``csrc/fused_block_tc.cuh``."""
+    k = 32 // itemsize
+    return -(-(c // 2) // k) * k
+
+
+def tc_np(c: int, itemsize: int, level: int) -> int:
+    """Outputs level ``level`` of the tensor-core kernel computes:
+    ``tc_inner_p`` at levels 0-2, c rounded up to 8 at level 3."""
+    return tc_inner_p(c, itemsize) if level < 3 else -(-c // 8) * 8
 
 
 def tc_smem_bytes(c: int, th: int, tw: int, itemsize: int) -> int:
     """Shared memory of the tensor-core kernel for one (th x tw) tile of
     elements of ``itemsize`` bytes (2: bf16, 4: f32); mirrors
-    ``tc_smem_bytes`` in ``csrc/fused_block_tc.cu``."""
+    ``tc_smem_bytes`` in ``csrc/fused_block_tc.cuh``."""
     positions = (th + 6) * (tw + 6) + (th + 4) * (tw + 4) + (th + 2) * (tw + 2)
     x_bufs = 2 if c * itemsize > 64 else 1
 
     def stage(n):
-        return (3 if n <= 64 else 1) * 32 * (n + 8) * itemsize
+        return (3 if n <= 64 else 1) * 32 * (n + (16 if n % 16 else 8)) * itemsize
 
-    return (positions * (c // 2 * itemsize + 16) + x_bufs * (th + 8) * (tw + 8) * 80
-            + 2 * max(stage(c // 2), stage(c)))
+    return (positions * (tc_inner_p(c, itemsize) * itemsize + 16)
+            + x_bufs * (th + 8) * (tw + 8) * 80
+            + 2 * max(stage(tc_np(c, itemsize, 0)), stage(tc_np(c, itemsize, 3))))
 
 
 def tc_tiles(c: int, itemsize: int):
@@ -178,15 +218,13 @@ def wide_workspace_shape(n: int, c: int, h: int, w: int):
 
 
 def block_variant(dtype, c: int) -> str:
-    """Which kernel a CUDA input of this dtype and width launches: ``"tc"``
-    (tensor cores: f32 or bf16 at c in TC_WIDTHS), ``"tc_wide"`` (the wide
-    form on the tensor cores: f32 or bf16 at c > 256, c a multiple of
-    2 * WIDE_N) or ``"cuda_core"`` (f32 or bf16 at any other width)."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        return "cuda_core"
-    if c in TC_WIDTHS:
-        return "tc"
-    return "tc_wide" if c > 256 else "cuda_core"
+    """Which kernel a CUDA input of this dtype (f32 or bf16) and width
+    launches: ``"tc"`` (the fused tensor-core body, at c in
+    TC_WIDTHS[dtype]) or ``"tc_wide"`` (the wide form on the tensor cores,
+    at every other width; its element-wise loads where c or c/2 is no
+    multiple of 16 bytes, measured faster than the CUDA-core kernel at base
+    25's 25 and 50 in both dtypes)."""
+    return "tc" if c in TC_WIDTHS.get(dtype, ()) else "tc_wide"
 
 
 def block_tile(dtype, n: int, c: int, h: int, w: int, sms: int):
@@ -196,10 +234,7 @@ def block_tile(dtype, n: int, c: int, h: int, w: int, sms: int):
     if variant == "tc":
         th, tw = pick_tile_tc(n, c, h, w, sms, dtype.itemsize)
         return "tc", th, tw, tc_smem_bytes(c, th, tw, dtype.itemsize)
-    if variant == "tc_wide":
-        return ("tc_wide", *WIDE_TILE, wide_smem_bytes(dtype.itemsize))
-    th, tw = pick_tile(c // 2, dtype.itemsize)
-    return "cuda_core", th, tw, smem_bytes(c // 2, th, tw, dtype.itemsize)
+    return ("tc_wide", *WIDE_TILE, wide_smem_bytes(dtype.itemsize))
 
 
 def block_weight_count(c: int, inner: int) -> int:
@@ -409,14 +444,10 @@ def fused_denoising_block_op(x: torch.Tensor, w: torch.Tensor, ba: torch.Tensor)
     if variant == "tc":
         y = _launch("fused_denoising_block", _tc_library(), "fused_block_tc", x, (w, ba),
                     n, h, w_, c, inner, (th, tw, smem))
-        fused_denoising_block.tc_launches += 1
-    elif variant == "tc_wide":
-        y = _launch_wide("fused_denoising_block", x, (w, ba), n, h, w_, c, inner, smem)
-        fused_denoising_block.tc_launches += 1
-        fused_denoising_block.wide_launches += 1
     else:
-        y = _launch("fused_denoising_block", _library(), "fused_block", x, (w, ba),
-                    n, h, w_, c, inner, (th, tw, smem))
+        y = _launch_wide("fused_denoising_block", x, (w, ba), n, h, w_, c, inner, smem)
+        fused_denoising_block.wide_launches += 1
+    fused_denoising_block.tc_launches += 1
     fused_denoising_block.launches += 1
     return y
 
@@ -432,12 +463,11 @@ def fused_denoising_block(x, params, packed=None):
     On a CPU tensor this is ``fused_denoising_block_plain``.  On a CUDA tensor
     it launches a kernel through the operator ``fused_denoising_block_op``,
     by this static rule (``block_variant``): f32 or
-    bf16 with c in ``TC_WIDTHS`` launches the tensor-core kernel
+    bf16 with c in ``TC_WIDTHS[dtype]`` launches the tensor-core kernel
     (``csrc/fused_block_tc.cu``, 3xTF32 for f32; counted in
-    ``.tc_launches``); c > 256 the wide form on the tensor cores
+    ``.tc_launches``); every other width the wide form on the tensor cores
     (``csrc/fused_block_wide_tc.cu``, four CUDA launches counted once, in
-    ``.tc_launches`` and ``.wide_launches``); other widths the CUDA-core
-    kernel (``csrc/fused_block.cu``).  Every block counts once in
+    ``.tc_launches`` and ``.wide_launches``).  Every block counts once in
     ``.launches``.  ``x`` must be f32 or bf16 in
     channels_last memory; ``packed`` is ``pack_block_params(params, x.dtype,
     x.device)``, which callers cache (it is built here when omitted).  The
@@ -581,14 +611,15 @@ def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
     On a CPU tensor this is ``fused_denoising_block_packed_plain``.  On a CUDA
     tensor it launches a kernel that addresses the packed layout by index and
     computes the nine 3x3 taps of kernel 1, by kernel 1's static rule
-    (``packed_block_tile``): f32 or bf16 with c in ``TC_WIDTHS`` launches
-    ``csrc/fused_block_packed_tc.cu``, kernel 1's tensor-core body with the
-    packed pixel address, whose unpacked output equals kernel 1's bit for
-    bit (counted in ``.tc_launches``); c > 256 the wide form
-    ``csrc/fused_block_wide_tc.cu`` with the packed pixel address (in
-    ``.tc_launches`` and ``.wide_launches``); other widths launch
-    ``csrc/fused_block_packed.cu`` on the CUDA cores.  Every block counts
-    once in ``.launches``.  ``kernel_weights`` is ``kernel_weights_from_packed(
+    (``packed_block_tile``): f32 or bf16 with c in ``TC_WIDTHS[dtype]``
+    launches ``csrc/fused_block_packed_tc.cu``, kernel 1's tensor-core body
+    with the packed pixel address, whose unpacked output equals kernel 1's
+    bit for bit (counted in ``.tc_launches``); every other width the wide
+    form ``csrc/fused_block_wide_tc.cu`` with the packed pixel address (in
+    ``.tc_launches`` and ``.wide_launches``).  Every block counts once in
+    ``.launches``.  ``csrc/fused_block_packed.cu``, kernel 2 on the CUDA
+    cores, takes no width any more; ``chip_smoke.py`` and the card tests
+    launch it directly (``_packed_library``).  ``kernel_weights`` is ``kernel_weights_from_packed(
     packed_params, xq.dtype)``, which callers cache per parameter version (it
     is gathered here when omitted).  No backward, like kernel 1."""
     name = "fused_denoising_block_packed"
@@ -612,15 +643,11 @@ def fused_denoising_block_packed(xq, packed_params, kernel_weights=None):
     if variant == "tc":
         y = _launch(name, _packed_tc_library(), "fused_block_packed_tc", xq, kernel_weights,
                     n, 2 * hq, 2 * wq, c, inner, (th, tw, smem))
-        fused_denoising_block_packed.tc_launches += 1
-    elif variant == "tc_wide":
+    else:
         y = _launch_wide(name, xq, kernel_weights, n, 2 * hq, 2 * wq, c, inner, smem,
                          packed_layout=True)
-        fused_denoising_block_packed.tc_launches += 1
         fused_denoising_block_packed.wide_launches += 1
-    else:
-        y = _launch(name, _packed_library(), "fused_block_packed", xq, kernel_weights,
-                    n, 2 * hq, 2 * wq, c, inner, (th, tw, smem))
+    fused_denoising_block_packed.tc_launches += 1
     fused_denoising_block_packed.launches += 1
     return y
 
