@@ -164,6 +164,31 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    speedup); then one nccl rank through ``denoise_cli --tensor-parallel``
    with torchrun's environment.
 
+23. The accuracy protocol (``scripts/train_accuracy.py``), cut: RDUNet-32
+   supervised at 256^2, bf16, engine "flax", 64 train and 16 held-out
+   synthetic images, batch 32 (acc 4), 8 epochs from the device bank, lr
+   3e-4: the loss falls and the held-out PSNR ends above the noisy
+   input's; 56 kernel-1 launches per step and 14 per evaluation, all on the
+   tensor cores; the same run as 4 epochs + 4 resumed from its mid_
+   checkpoint equals the straight run's final params (STEP_RTOL /
+   STEP_ATOL; cuDNN deterministic); the final checkpoint scored in f32 on
+   the card and on the CPU within PROTOCOL_PSNR_TOL per image; a cut
+   diffusion run (2 epochs) evaluated through the T = 20 sampler (280
+   launches per sampler call).
+24. The GAN protocol: ``train_gan_accuracy --algo attention`` at its recorded
+   settings (40 epochs of 16 steps, 64^2, batch 16; cuDNN, no kernel of
+   ours): best and final held-out PSNR, seconds; the best above the noisy
+   input's.
+25. ``run_comparative_suite`` on step 23's two checkpoints (3 images of
+   64^2, BM3D) on the card and on the CPU: the metric tables within
+   COMPARE_PSNR_TOL / COMPARE_TOL, 14 + 14*T launches on the card; then an
+   "xla" supervised step of RDUNet-32, 8 x 256^2, acc 4, under each
+   ``fused_apply`` switch (``VUB_PRECOMBINE_MIN_C``, ``VUB_BWD_PRECOMBINE``,
+   ``VUB_DOWN_MATMUL_BWD``) beside all off, each in a fresh process
+   (``--switch-worker``; the switches are read at import): f32 and bf16 step
+   times, params after one f32 SGD step within STEP_RTOL / STEP_ATOL of
+   the off step's.
+
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
 failure, and when CUDA or the port's package is missing.
@@ -3083,6 +3108,312 @@ def multirank_worker(rank, world, port, tmp):
     torch.distributed.destroy_process_group()
 
 
+# Phase 23: the accuracy protocol (scripts/train_accuracy.py), cut: RDUNet-32
+# supervised at 256^2, bf16, engine "flax", on PROTOCOL_TRAIN + PROTOCOL_VAL
+# synthetic images, batch 32, PROTOCOL_EPOCHS epochs from the device bank,
+# a mid_ checkpoint after PROTOCOL_SPLIT of them, then the rest resumed
+# from it; the written checkpoint scored on the card and on the CPU in f32;
+# a cut diffusion run evaluated through the T = 20 sampler.
+PROTOCOL_TRAIN, PROTOCOL_VAL, PROTOCOL_BATCH = 64, 16, 32
+PROTOCOL_EPOCHS, PROTOCOL_SPLIT, PROTOCOL_DIFFUSION_EPOCHS = 8, 4, 2
+PROTOCOL_ARGS = ["--size", str(IMAGE_SIZE), "--n-train", str(PROTOCOL_TRAIN),
+                 "--n-val", str(PROTOCOL_VAL), "--batch-size", str(PROTOCOL_BATCH),
+                 "--lr", "3e-4", "--sched-steps-per-epoch", "100", "--device-data",
+                 "--eval-every", str(PROTOCOL_SPLIT)]
+PROTOCOL_CPU_IMAGES = 8     # held-out images scored on the CPU beside the card
+PROTOCOL_PSNR_TOL = 1e-3    # dB, per image, card vs CPU in f32
+# Phase 24: the GAN protocol at its recorded settings (the script's defaults:
+# 40 epochs of 16 steps, 64^2, batch 16).
+GAN_PROTOCOL_ARGS = ["--algo", "attention"]
+# Phase 25: the comparative runner on phase 23's two checkpoints, cut to a
+# few small images, on the card and on the CPU; then one "xla" supervised
+# step of RDUNet-32 under each fused_apply switch in a fresh process.
+RUNNER_ARGS = ["--n-images", "3", "--size", "64", "--batch-size", "3",
+               "--timesteps", str(TIMESTEPS), "--epoch-label", str(PROTOCOL_DIFFUSION_EPOCHS)]
+SWITCH_CASES = {"off": {}, "precombine": {"VUB_PRECOMBINE_MIN_C": "32"},
+                "bwd_precombine": {"VUB_BWD_PRECOMBINE": "32"},
+                "down_matmul_bwd": {"VUB_DOWN_MATMUL_BWD": "1"}}
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, io.StringIO()
+
+    def write(self, s):
+        self.lines.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_protocol(torch, ta, argv, per_eval):
+    """``ta.main(argv)`` on the card with kernel 1's launches counted: those
+    of each held-out evaluation apart from the training's.  Fails unless
+    every training step launched 14 * ACCUMULATION blocks, every
+    evaluation ``per_eval``, all on the tensor cores, and the losses are
+    finite.  Returns the row, the losses, the launches and the seconds."""
+    import contextlib
+
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+
+    evals, evaluate = [], ta.evaluate_psnr
+
+    def counted(*args, **kwargs):
+        before = counts(k1)
+        out = evaluate(*args, **kwargs)
+        evals.append([a - b for a, b in zip(counts(k1), before)])
+        return out
+
+    reset_counts(k1)
+    tee = _Tee(sys.stdout)
+    ta.evaluate_psnr = counted
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            row = ta.main(argv)
+    finally:
+        ta.evaluate_psnr = evaluate
+    sec = time.perf_counter() - t0
+    losses = [float(line.split(" loss ")[1].split()[0])
+              for line in tee.lines.getvalue().splitlines()
+              if line.startswith("epoch ") and " loss " in line]
+    total = counts(k1)
+    epochs = len(losses)
+    steps = epochs * (PROTOCOL_TRAIN // PROTOCOL_BATCH)
+    train = [t - sum(e[i] for e in evals) for i, t in enumerate(total)]
+    rec = {"row": row, "losses": losses, "sec": sec, "steps": steps,
+           "launches": {"all": total[0], "tc": total[1], "wide": total[2]},
+           "per_step": train[0] / steps, "per_eval": [e[0] for e in evals],
+           "sec_per_epoch": sec / epochs}
+    print(f"protocol {row['metric']} ({' '.join(argv[-4:])}): {epochs} epochs, {steps} steps in "
+          f"{sec:.1f} s ({rec['sec_per_epoch']:.2f} s/epoch); losses {losses}; noisy-input PSNR "
+          f"{row['psnr_noisy_db']} dB, held-out {row['psnr_denoised_db']} dB; kernel-1 launches "
+          f"{rec['launches']}: {rec['per_step']:.0f} per step (want {14 * ACCUMULATION}), per "
+          f"eval {rec['per_eval']} (want {per_eval} each)", flush=True)
+    if (train[0] != steps * 14 * ACCUMULATION or any(e != [per_eval, per_eval, 0] for e in evals)
+            or total[1] != total[0] or not all(math.isfinite(v) for v in losses)):
+        fail(f"protocol run {argv}: launches {total}, evals {evals}, losses {losses}")
+    return rec
+
+
+def max_param_ratio(a, b):
+    """max |a - b| / (STEP_ATOL + STEP_RTOL * |b|) over two state_dicts."""
+    return max(((a[k].float() - v.float()).abs() / (STEP_ATOL + STEP_RTOL * v.float().abs()))
+               .max().item() for k, v in b.items())
+
+
+def protocol_main_path(torch, device, tmp):
+    """Phase 23 (module docstring): returns the records and the two
+    checkpoints' paths for phase 25."""
+    import numpy as np
+
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.scripts import train_accuracy as ta
+    from vub_image_denoising_tpu_torch.train import SupervisedTrainer
+    from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
+
+    phase_t0 = time.perf_counter()
+    common = ["--cache-dir", os.path.join(tmp, "cache"), "--out", os.path.join(tmp, "log.jsonl"),
+              *PROTOCOL_ARGS]
+    ck, ck_resumed, ck_diff = (os.path.join(tmp, d) for d in ("ck", "ck_resumed", "ck_diff"))
+    out = {}
+    # the straight and the resumed run take cuDNN's deterministic algorithms
+    # (its default weight gradients are not deterministic)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        out["straight"] = run_protocol(torch, ta, common + [
+            "--epochs", str(PROTOCOL_EPOCHS), "--ckpt-every", str(PROTOCOL_SPLIT),
+            "--ckpt-dir", ck], 14)
+        out["resumed"] = run_protocol(torch, ta, common + [
+            "--epochs", str(PROTOCOL_EPOCHS - PROTOCOL_SPLIT), "--ckpt-dir", ck_resumed,
+            "--resume", os.path.join(ck, "mid_rdunet_denoising.pth")], 14)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    straight = out["straight"]
+    row, losses = straight["row"], straight["losses"]
+    if not (losses[-1] < losses[0] and row["psnr_denoised_db"] > row["psnr_noisy_db"]):
+        fail(f"the cut protocol did not learn: losses {losses}, held-out "
+             f"{row['psnr_denoised_db']} dB against the noisy input's {row['psnr_noisy_db']}")
+    final = os.path.join(ck, "rdunet_denoising.pth")
+    a = torch.load(final, map_location="cpu", weights_only=True)["model_state_dict"]
+    b = torch.load(os.path.join(ck_resumed, "rdunet_denoising.pth"), map_location="cpu",
+                   weights_only=True)["model_state_dict"]
+    out["resume_ratio"] = max_param_ratio(b, a)
+    out["resume_max_abs_diff"] = max((a[k] - b[k]).abs().max().item() for k in a)
+    print(f"protocol {PROTOCOL_SPLIT} + resumed {PROTOCOL_EPOCHS - PROTOCOL_SPLIT} epochs vs "
+          f"{PROTOCOL_EPOCHS} straight: final params max |diff| {out['resume_max_abs_diff']:.3e}, "
+          f"worst |diff| / (atol {STEP_ATOL} + rtol {STEP_RTOL}*|p|) = {out['resume_ratio']:.3f} "
+          f"(must be <= 1)", flush=True)
+    if out["resume_ratio"] > 1 or out["resumed"]["row"].get("resumed_from_epoch") != PROTOCOL_SPLIT:
+        fail("the resumed protocol run disagrees with the straight run")
+
+    # the written checkpoint scored in f32 on the card and on the CPU
+    _, val = ta.synth_train_val(PROTOCOL_TRAIN, PROTOCOL_VAL, IMAGE_SIZE,
+                                cache_dir=os.path.join(tmp, "cache"))
+    val = val[:PROTOCOL_CPU_IMAGES]
+    noisy = ta.heldout_noisy(val, np.full(len(val), 25.0, np.float32))
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+
+    scores = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        model = RDUNet(3, BASE_FILTERS)
+        load_pth(final, model)
+        trainer = SupervisedTrainer(model, device=dev)
+        state = trainer.init(1)
+        reset_counts(k1)
+        scores[name] = ta.evaluate_psnr(lambda x: trainer.evaluate_batch(state, x), noisy, val,
+                                        ta.EVAL_BATCH["supervised"], dev)
+        if name == "card":
+            out["eval_f32_launches"] = variant_counts(k1, (0, 0, 0))
+    err = float(np.abs(scores["card"] - scores["cpu"]).max())
+    out["card_vs_cpu_psnr"] = {"card": scores["card"].tolist(), "cpu": scores["cpu"].tolist(),
+                               "max_abs_diff_db": err}
+    print(f"protocol checkpoint in f32, {len(val)} held-out images: card PSNR "
+          f"{scores['card'].mean():.4f} dB, CPU {scores['cpu'].mean():.4f} dB, per-image max "
+          f"|diff| {err:.3e} dB (tol {PROTOCOL_PSNR_TOL}); card launches "
+          f"{out['eval_f32_launches']}", flush=True)
+    if not err <= PROTOCOL_PSNR_TOL or out["eval_f32_launches"]["tc"] != 14:
+        fail("the protocol checkpoint scores differently on the card and the CPU")
+
+    out["diffusion"] = run_protocol(torch, ta, common + [
+        "--epochs", str(PROTOCOL_DIFFUSION_EPOCHS), "--ckpt-dir", ck_diff,
+        "--algo", "diffusion", "--timesteps", str(TIMESTEPS)],
+        14 * TIMESTEPS * -(-PROTOCOL_VAL // ta.EVAL_BATCH["diffusion"]))
+    if not math.isfinite(out["diffusion"]["row"]["psnr_denoised_db"]):
+        fail("the cut diffusion protocol gave no finite PSNR")
+    out["launches"] = {k: out[k]["launches"] for k in ("straight", "resumed", "diffusion")}
+    out["launches"]["eval_f32"] = out["eval_f32_launches"]
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"protocol phase: {out['phase_sec']:.1f} s", flush=True)
+    paths = {"unet": final, "diffusion": os.path.join(
+        ck_diff, f"diffusion_RDUNet_model_checkpointed_epoch_{PROTOCOL_DIFFUSION_EPOCHS}.pth")}
+    return out, paths
+
+
+def gan_protocol_main_path(torch, tmp):
+    """Phase 24: ``train_gan_accuracy --algo attention`` at its recorded
+    settings; the generator must end above the noisy input."""
+    from vub_image_denoising_tpu_torch.scripts import train_gan_accuracy as tg
+
+    t0 = time.perf_counter()
+    rec = tg.main(GAN_PROTOCOL_ARGS + ["--cache-dir", os.path.join(tmp, "cache"),
+                                       "--ckpt-dir", os.path.join(tmp, "gan"),
+                                       "--out", os.path.join(tmp, "log.jsonl")])
+    out = {"row": rec, "phase_sec": time.perf_counter() - t0}
+    print(f"GAN protocol attention: {rec['steps']} steps, train {rec['train_seconds']} s, phase "
+          f"{out['phase_sec']:.1f} s; held-out best {rec['psnr_best_db']} dB, final "
+          f"{rec['psnr_denoised_db']} dB (noisy input {rec['psnr_noisy_db']} dB)", flush=True)
+    if not rec["psnr_best_db"] > rec["psnr_noisy_db"]:
+        fail("the attention GAN did not learn")
+    return out
+
+
+def runner_and_switches_main_path(torch, device, tmp, paths):
+    """Phase 25: the comparative runner on the trained checkpoints on the
+    card and the CPU (metric tables within COMPARE_PSNR_TOL / COMPARE_TOL;
+    14 + 14*T launches per batch on the card), then ``switch_step`` in a
+    fresh process per switch: params after one SGD step within STEP_RTOL /
+    STEP_ATOL of the switches-off step's, step times beside it."""
+    from vub_image_denoising_tpu_torch.eval.compare import KEYS, VARIANTS
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.scripts import run_comparative_suite as rcs
+
+    phase_t0 = time.perf_counter()
+    out = {}
+    metrics = {}
+    for name, dev in (("card", device.type), ("cpu", "cpu")):
+        args = rcs.build_arg_parser().parse_args(RUNNER_ARGS + [
+            "--unet-ckpt", paths["unet"], "--diffusion-ckpt", paths["diffusion"],
+            "--device", dev, "--save-dir", os.path.join(tmp, f"runner_{name}")])
+        reset_counts(k1)
+        t0 = time.perf_counter()
+        summary, metrics[name] = rcs.run_suite(args)
+        out[f"{name}_sec"] = time.perf_counter() - t0
+        if name == "card":
+            out["launches"] = variant_counts(k1, (0, 0, 0))
+            out["summary"] = summary
+    worst = {}
+    for k in KEYS:
+        for v in VARIANTS:
+            if v == "bm3d" and k in ("lpips", "dists"):
+                continue
+            worst[f"{k}_{v}"] = max(abs(x - y) for x, y in zip(metrics["card"][f"{k}_{v}"],
+                                                             metrics["cpu"][f"{k}_{v}"]))
+    out["card_vs_cpu"] = worst
+    want = 14 + 14 * TIMESTEPS
+    bad = {key: e for key, e in worst.items()
+           if not e <= (COMPARE_PSNR_TOL if key.startswith("psnr") else COMPARE_TOL)}
+    print(f"runner on the trained checkpoints ({' '.join(RUNNER_ARGS[:6])}, BM3D): card "
+          f"{out['card_sec']:.1f} s, CPU {out['cpu_sec']:.1f} s; summary {out['summary']}; card vs "
+          f"CPU worst |diff| {worst}; kernel-1 launches {out['launches']} (want {want})",
+          flush=True)
+    if bad or out["launches"] != {"all": want, "tc": want, "wide": 0, "cuda_core": 0}:
+        fail(f"runner: card vs CPU {bad}, launches {out['launches']}")
+
+    out["switches"] = {}
+    for name, env in SWITCH_CASES.items():
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--switch-worker", tmp,
+                               name], capture_output=True, text=True, timeout=600,
+                              env={**os.environ, **env})
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            fail(f"the switch worker {name} failed:\n{proc.stderr[-4000:]}")
+        res = torch.load(os.path.join(tmp, f"switch_{name}.pt"), weights_only=False)
+        out["switches"][name] = {"env": env, "ms": res["ms"], "launches": res["launches"]}
+    off = torch.load(os.path.join(tmp, "switch_off.pt"), weights_only=False)["params"]
+    for name in SWITCH_CASES:
+        rec = out["switches"][name]
+        rec["ratio"] = max_param_ratio(
+            torch.load(os.path.join(tmp, f"switch_{name}.pt"), weights_only=False)["params"], off)
+        print(f"switch {name} {rec['env']}: xla step f32 {rec['ms']['f32']:.2f} ms, bf16 "
+              f"{rec['ms']['bf16']:.2f} ms (off {out['switches']['off']['ms']}); SGD-step params "
+              f"vs off worst |diff| / (atol {STEP_ATOL} + rtol {STEP_RTOL}*|p|) = "
+              f"{rec['ratio']:.3f} (must be <= 1)", flush=True)
+        if rec["ratio"] > 1 or rec["launches"] != 0:
+            fail(f"switch {name}: params ratio {rec['ratio']}, {rec['launches']} launches")
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"runner and switches phase: {out['phase_sec']:.1f} s", flush=True)
+    return out
+
+
+def switch_worker(tmp, name):
+    """``--switch-worker``: in this fresh process (the switches are read at
+    import) time the "xla" supervised step of RDUNet-32 on 8 x 256^2, acc 4,
+    in f32 and bf16, and take one f32 SGD step (``compare_with_xla``'s
+    recipe); save the params, times and kernel-1 launches."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vub_image_denoising_tpu_torch import enable_strict_precision
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.train import TrainState, make_supervised_train_step
+
+    enable_strict_precision()
+    device = torch.device("cuda")
+    init = RDUNet(3, BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict()
+    batches = make_batches(torch, device)
+    res = {"ms": {}}
+    for short, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        trainer, state = make_trainer(torch, init, "xla", dtype)
+        res["ms"][short] = cuda_ms(torch, lambda: trainer.train_step(state, *batches[0]), 4,
+                                   warmup=2)
+    trainer, state = make_trainer(torch, init, "xla", torch.float32)
+    opt = torch.optim.SGD(list(state.params.values()), lr=1e-2)
+    sgd = TrainState(state.params, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0),
+                     clip_norm=1.0)
+    reset_counts(k1)
+    make_supervised_train_step(trainer.forward_fn, ACCUMULATION)(
+        sgd, *(trainer.put(t) for t in batches[0]))
+    res["launches"] = k1.launches
+    res["params"] = {k: v.detach().cpu() for k, v in state.params.items()}
+    torch.save(res, os.path.join(tmp, f"switch_{name}.pt"))
+    print(f"switch worker {name}: xla step {res['ms']}", flush=True)
+
+
 def main():
     import torch
 
@@ -3091,6 +3422,8 @@ def main():
         return export_worker(args[1])
     if args[:1] == ["--multirank-worker"] and len(args) == 5:
         return multirank_worker(int(args[1]), int(args[2]), args[3], args[4])
+    if args[:1] == ["--switch-worker"] and len(args) == 3:
+        return switch_worker(args[1], args[2])
     if args not in ([], ["--profile"]):
         fail(f"usage: python3 chip_smoke.py [--profile]  (got {args})")
 
@@ -3175,6 +3508,15 @@ def main():
     phase_sec[21] = export["phase_sec"]
     multi = multi_device_main_path(torch, device)
     phase_sec[22] = multi["phase_sec"]
+    with tempfile.TemporaryDirectory() as tmp:
+        protocol, trained = protocol_main_path(torch, device, tmp)
+        phase_sec[23] = protocol["phase_sec"]
+        gan_protocol = gan_protocol_main_path(torch, tmp)
+        phase_sec[24] = gan_protocol["phase_sec"]
+        runner = runner_and_switches_main_path(torch, device, tmp, trained)
+        phase_sec[25] = runner["phase_sec"]
+    print("phases 23-25: " + ", ".join(f"{k}: {phase_sec[k]:.1f} s" for k in (23, 24, 25))
+          + f"; {sum(phase_sec[k] for k in (23, 24, 25)):.1f} s together", flush=True)
     remat_launches = {k: sum(r["tc"] for r in v["launches"]) for k, v in remat.items()}
     search_launches = {"run_search": sum(t["launches"]["all"] for t in search["trials"]),
                        "fixed": sum(t["launches"]["all"] for t in search["fixed"])}
@@ -3257,7 +3599,9 @@ def main():
                          + partial["rdunet152"]["launches"]["all"]
                          + sum(remat_launches.values()) + sum(search_launches.values())
                          + comparison["launches"]["all"] + export["launches"]
-                         + multi["launches"]),
+                         + multi["launches"]
+                         + sum(v["all"] for v in protocol["launches"].values())
+                         + runner["launches"]["all"]),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -3277,6 +3621,8 @@ def main():
                                  "compare": comparison["launches"],
                                  "export": {k: v["launches"] for k, v in export["cases"].items()},
                                  "multi_device": [r["launches"] for r in multi["ranks"]],
+                                 "protocol": protocol["launches"],
+                                 "runner_trained": runner["launches"],
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
             "train_step_ms": step_ms,
@@ -3301,6 +3647,9 @@ def main():
             "compare": comparison,
             "export": export,
             "multi_device": multi,
+            "protocol": protocol,
+            "gan_protocol": gan_protocol,
+            "runner_and_switches": runner,
             "phase_sec": phase_sec,
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc",
                                                   "fused_block_wide_tc")},

@@ -920,3 +920,70 @@ def test_cuda_two_gloo_ranks_share_the_card(cuda, tmp_path, param_sharding):
         assert got["loss"] == pytest.approx(float(loss), rel=1e-5)
         for k, v in want.items():
             torch.testing.assert_close(got["params"][k], v, rtol=1e-4, atol=1e-6, msg=k)
+
+
+def test_cuda_protocol_checkpoint_scores_alike_on_the_card_and_the_cpu(cuda, tmp_path):
+    """The accuracy protocol (``scripts/train_accuracy.py``) cut to RDUNet-32
+    on 8 x 64^2, batch 4 (acc 4), 2 epochs from the device bank: 56 launches
+    per step on the tensor cores; its checkpoint scored in f32 on the card
+    and on the CPU within 1e-3 dB per image."""
+    import numpy as np
+
+    from vub_image_denoising_tpu_torch.scripts import train_accuracy as ta
+    from vub_image_denoising_tpu_torch.train import SupervisedTrainer
+    from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
+
+    counter = fb.fused_denoising_block
+    before, tc_before = counter.launches, counter.tc_launches
+    row = ta.main(["--epochs", "2", "--batch-size", "4", "--size", "64", "--n-train", "8",
+                   "--n-val", "4", "--device-data", "--lr", "3e-4",
+                   "--cache-dir", str(tmp_path / "cache"), "--ckpt-dir", str(tmp_path / "ck"),
+                   "--out", str(tmp_path / "log.jsonl")])
+    torch.cuda.synchronize()
+    # 4 steps of 4 micro-batches, and one held-out batch per evaluation (2)
+    assert (counter.launches - before, counter.tc_launches - tc_before) == (4 * 56 + 2 * 14,) * 2
+    assert row["steps"] == 4 and np.isfinite(row["psnr_denoised_db"])
+    _, val = ta.synth_train_val(8, 4, 64, cache_dir=str(tmp_path / "cache"))
+    noisy = ta.heldout_noisy(val, np.full(len(val), 25.0, np.float32))
+    scores = []
+    for device in (cuda, torch.device("cpu")):
+        model = RDUNet(3, 32)
+        load_pth(str(tmp_path / "ck" / "rdunet_denoising.pth"), model)
+        trainer = SupervisedTrainer(model, device=device)
+        state = trainer.init(1)
+        scores.append(ta.evaluate_psnr(lambda x: trainer.evaluate_batch(state, x), noisy, val,
+                                       32, device))
+    np.testing.assert_allclose(scores[0], scores[1], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("switch,value", [("_PRECOMBINE_MIN_CHANNELS", 32),
+                                          ("_BWD_PRECOMBINE_MIN_C", 32),
+                                          ("_DOWN_MATMUL_BWD", True)])
+def test_cuda_fused_apply_switch_gives_the_default_step(cuda, monkeypatch, switch, value):
+    """One accumulate -> clip 1.0 -> SGD(1e-2) step of RDUNet-32 on the "xla"
+    engine, 4 x 64^2, acc 2, f32, with one switch of ``models/fused_apply.py``
+    on: the params within rtol 1e-4 / atol 1e-6 of the step with all off."""
+    from vub_image_denoising_tpu_torch.train import SupervisedTrainer, TrainState
+
+    class SGD:
+        clip_norm = 1.0
+
+        def build(self, leaves):
+            opt = torch.optim.SGD(list(leaves), lr=1e-2)
+            return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0)
+
+    gen = torch.Generator().manual_seed(6)
+    init = RDUNet(3, 32, generator=gen).state_dict()
+    x, y = (torch.rand(4, 3, 64, 64, generator=gen) * 2 - 1 for _ in range(2))
+    params = {}
+    for on in (False, True):
+        if on:
+            monkeypatch.setattr(fa, switch, value)
+        model = RDUNet(3, 32)
+        model.load_state_dict(init)
+        trainer = SupervisedTrainer(model, accumulation_steps=2, engine="xla")
+        state = trainer.init(steps_per_epoch=1)
+        trainer._step(TrainState.create(state.params, SGD()), trainer.put(x), trainer.put(y))
+        params[on] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for k, v in params[False].items():
+        torch.testing.assert_close(params[True][k], v, rtol=1e-4, atol=1e-6, msg=k)

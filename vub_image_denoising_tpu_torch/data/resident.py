@@ -16,7 +16,7 @@ and ``device`` and ``mesh`` here: over several ranks each rank gathers only
 its rows of every batch from the bank, and the transform's draws are made
 for the whole batch (``data.device.transform_rows``), as ``PatchLoader``
 does.  The bank holds whole patches: JAX's random-crop
-``patch`` option and ``steps_per_epoch`` override are not ported.
+``patch`` option is not ported.
 
 Not for datasets that do not fit in the card's memory beside the train state.
 """
@@ -49,6 +49,8 @@ class DeviceBankLoader:
       index_map: ``(idx,) -> (bank_indices, aux_tuple)`` on the device, mapping
         logical indices to bank rows plus per-sample aux tensors forwarded to
         ``transform`` (e.g. sigma).  Default: identity, no aux.
+      steps_per_epoch: batches per epoch (default the mode's natural length;
+        in ``"sequential"`` mode, when given, it replaces that length).
       drop_last: sequential mode only — keep (False) or drop the short tail.
       device: where the bank lives (default the card).
       seed, split: the stream, as ``PatchLoader``'s.
@@ -63,6 +65,7 @@ class DeviceBankLoader:
         mode: str = "sample",
         n_logical: Optional[int] = None,
         index_map: Optional[Callable] = None,
+        steps_per_epoch: Optional[int] = None,
         drop_last: bool = False,
         device=None,
         seed: int = 0,
@@ -99,7 +102,12 @@ class DeviceBankLoader:
                     stacklevel=3,
                 )
                 self.batch_size = self.n_logical
-            self._steps = max(1, self.n_logical // self.batch_size)
+            self._steps = int(steps_per_epoch or max(1, self.n_logical // self.batch_size))
+            if mode == "permute" and self._steps * self.batch_size > self.n_logical:
+                raise ValueError(f"permute mode: {self._steps} steps x {self.batch_size} "
+                                 f"exceeds the {self.n_logical}-item logical space")
+        if steps_per_epoch is not None and mode == "sequential":
+            self._steps = int(steps_per_epoch)
 
     def __len__(self):
         return self._steps

@@ -20,11 +20,27 @@ kernel's weight layout is built by the caller, once per set of parameter
 values (``block_kernel_weights``), and passed as ``kernel_weights``;
 without it each forward builds them once.  The kernel engine runs for every
 width: the JAX package's TPU gate (``c % 128 == 0`` and weights <= 4 MB)
-is not carried over.  The
-precombined block and the backward variants of the JAX module (measured
-negative on a TPU, off there by default) are not ported.
+is not carried over.
+
+Three switches of the JAX module, read once at import from the same
+environment variables and off by default, change how the eager engine
+computes (the same function, another summation order):
+
+- ``VUB_PRECOMBINE_MIN_C=c``: eager blocks of width >= c run
+  ``_dense_block_xla_precombined`` (weights regrouped by source tensor);
+- ``VUB_BWD_PRECOMBINE=c``: eager blocks of width >= c run the standard
+  forward with the precombined graph's backward
+  (``_dense_block_precombined_bwd``);
+- ``VUB_DOWN_MATMUL_BWD=1``: every engine's downsample runs the VALID
+  stride-2 conv forward with the space-to-depth matmul backward
+  (``_down_fast_bwd``).
+
+As in the JAX package they act on the eager path only: the kernel
+engine's blocks and the recompute in ``fused_block_trainable``'s backward
+stay ``_dense_block_xla``.
 """
 
+import os
 from typing import Any, Dict
 
 import torch
@@ -131,6 +147,122 @@ def _dense_block_xla(params, x):
     return conv(cat2, 3) + x
 
 
+def _dense_block_xla_precombined(params, x):
+    """The eager DenoisingBlock with every weight split along its input
+    channels and regrouped by SOURCE tensor: conv_i(cat(x, o_0..o_{i-1})) is
+    the sum over sources of conv(source_j, W_i[:, source_j]), so the four
+    (c->g, ..->g, ..->g, ..->c) convs become (c->3g+c, g->2g+c, g->g+c,
+    g->c) convs at the same FLOPs, and no concat is built.  The same
+    linear map as ``_dense_block_xla`` in another summation order."""
+    c = x.shape[1]
+    k = [params[f"conv_{i}.weight"].to(x.dtype) for i in range(4)]
+    b = [params[f"conv_{i}.bias"].to(x.dtype).view(1, -1, 1, 1) for i in range(4)]
+    al = [params[f"actv_{i}.weight"] for i in range(4)]
+    g = k[0].shape[0]
+
+    # weights regrouped by source tensor (OIHW: input channels on axis 1)
+    w_x = torch.cat([k[0], k[1][:, :c], k[2][:, :c], k[3][:, :c]], 0)
+    w_0 = torch.cat([k[1][:, c:], k[2][:, c:c + g], k[3][:, c:c + g]], 0)
+    w_1 = torch.cat([k[2][:, c + g:], k[3][:, c + g:c + 2 * g]], 0)
+    w_2 = k[3][:, c + 2 * g:]
+
+    a = F.conv2d(x, w_x, padding=1)      # [g | g | g | c] contributions of x
+    out0 = _prelu(a[:, :g] + b[0], al[0])
+    bb = F.conv2d(out0, w_0, padding=1)  # [g | g | c] contributions of out0
+    out1 = _prelu(a[:, g:2 * g] + bb[:, :g] + b[1], al[1])
+    cc = F.conv2d(out1, w_1, padding=1)  # [g | c] contributions of out1
+    out2 = _prelu(a[:, 2 * g:3 * g] + bb[:, g:2 * g] + cc[:, :g] + b[2], al[2])
+    dd = F.conv2d(out2, w_2, padding=1)  # [c] contributions of out2
+    out3 = _prelu(a[:, 3 * g:] + bb[:, 2 * g:] + cc[:, g:] + dd + b[3], al[3])
+    return out3 + x
+
+
+def _recompute_grads(fn, keys, saved, needs, g):
+    """The gradients of ``fn(dict(zip(keys, params)), x)`` for ``saved`` =
+    (x, *params), recomputed and differentiated against the cotangent
+    ``g``; None where ``needs`` is False."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        y = fn(dict(zip(keys, leaves[1:])), leaves[0])
+        grads = iter(torch.autograd.grad(y, [t for t in leaves if t.requires_grad], g))
+    return [next(grads) if n else None for n in needs]
+
+
+class _PrecombinedBwdBlock(torch.autograd.Function):
+    """The standard eager block forward, the precombined graph's backward."""
+
+    @staticmethod
+    def forward(ctx, x, *params):
+        ctx.save_for_backward(x, *params)
+        return _dense_block_xla(dict(zip(BLOCK_KEYS, params)), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(_recompute_grads(_dense_block_xla_precombined, BLOCK_KEYS,
+                                      ctx.saved_tensors, ctx.needs_input_grad, g))
+
+
+def _dense_block_precombined_bwd(params, x):
+    """DenoisingBlock with the STANDARD forward and the precombined
+    backward: both formulations compute the same function, so the VJP of
+    the precombined graph gives the same gradients (up to reassociation)
+    through wider weight-gradient convs and no concat splits."""
+    return _PrecombinedBwdBlock.apply(x, *(params[k] for k in BLOCK_KEYS))
+
+
+DOWN_KEYS = ("conv.weight", "conv.bias", "actv.weight")
+
+
+def _down_s2d(p, x):
+    """The k2 s2 downsample as space-to-depth + one matmul (the same math as
+    ``_down``); its VJP is two matmuls and reshapes, no conv-transpose."""
+    n, cin, h, w = x.shape
+    k = p["conv.weight"]  # (cout, cin, 2, 2)
+    cout = k.shape[0]
+    xs = x.reshape(n, cin, h // 2, 2, w // 2, 2).permute(0, 2, 4, 3, 5, 1)
+    xs = xs.reshape(n, h // 2, w // 2, 4 * cin)  # (kh, kw, cin) per output pixel
+    wk = k.permute(2, 3, 1, 0).reshape(4 * cin, cout).to(x.dtype)
+    y = (xs @ wk).permute(0, 3, 1, 2) + p["conv.bias"].to(x.dtype).view(1, -1, 1, 1)
+    return _prelu(y, p["actv.weight"])
+
+
+class _DownFastBwd(torch.autograd.Function):
+    """The VALID stride-2 conv forward, the space-to-depth matmul backward."""
+
+    @staticmethod
+    def forward(ctx, x, *params):
+        ctx.save_for_backward(x, *params)
+        return _down(dict(zip(DOWN_KEYS, params)), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(_recompute_grads(_down_s2d, DOWN_KEYS, ctx.saved_tensors,
+                                      ctx.needs_input_grad, g))
+
+
+def _down_fast_bwd(p, x):
+    """Downsample: VALID stride-2 conv forward, matmul backward."""
+    return _DownFastBwd.apply(x, *(p[k] for k in DOWN_KEYS))
+
+
+# The JAX module's switches (off by default; measured negative on a TPU, see
+# its notes), read once at import: eager blocks of width >= the first run
+# precombined, of width >= the second with the precombined backward; the
+# third gives every downsample the matmul backward.
+_PRECOMBINE_MIN_CHANNELS = int(os.environ.get("VUB_PRECOMBINE_MIN_C", str(1 << 30)))
+_BWD_PRECOMBINE_MIN_C = int(os.environ.get("VUB_BWD_PRECOMBINE", str(1 << 30)))
+_DOWN_MATMUL_BWD = os.environ.get("VUB_DOWN_MATMUL_BWD", "0") == "1"
+
+
+def _eager_block_for(c):
+    """The eager block of width ``c`` under the switches."""
+    if c >= _PRECOMBINE_MIN_CHANNELS:
+        return _dense_block_xla_precombined
+    if c >= _BWD_PRECOMBINE_MIN_C:
+        return _dense_block_precombined_bwd
+    return _dense_block_xla
+
+
 def _fused_block_semantic(x, params, packed=False, kernel_weights=None):
     """One DenoisingBlock on unpacked x through kernel 1, or through kernel 2
     between ``pack2x2`` and ``unpack2x2``.  ``kernel_weights`` is the
@@ -153,13 +285,8 @@ class _FusedBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, *params = ctx.saved_tensors
         needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[3:])
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip((x, *params), needs)]
-            y = _dense_block_xla(dict(zip(BLOCK_KEYS, leaves[1:])), leaves[0])
-            grads = iter(torch.autograd.grad(y, [t for t in leaves if t.requires_grad], g))
-        out = [next(grads) if n else None for n in needs]
+        out = _recompute_grads(_dense_block_xla, BLOCK_KEYS, ctx.saved_tensors, needs, g)
         return out[0], None, None, *out[1:]
 
 
@@ -188,12 +315,14 @@ def _core(p, x, engine="auto", trainable=False, remat=False, kernel_weights=None
     eng = pick_engine(engine, x)
     if eng != "xla" and kernel_weights is None:
         kernel_weights = block_kernel_weights(p, x.dtype)
+    down = _down_fast_bwd if _DOWN_MATMUL_BWD else _down
 
     def block(name, h):
         if eng == "xla":
+            fn = _eager_block_for(h.shape[1])
             if remat:
-                return checkpoint(_dense_block_xla, p[name], h, use_reentrant=False)
-            return _dense_block_xla(p[name], h)
+                return checkpoint(fn, p[name], h, use_reentrant=False)
+            return fn(p[name], h)
         kw = kernel_weights[name] if kernel_weights is not None else None
         if trainable:
             return fused_block_trainable(h, p[name], kernel_weights=kw)
@@ -203,9 +332,9 @@ def _core(p, x, engine="auto", trainable=False, remat=False, kernel_weights=None
         return block(name_b, block(name_a, h))
 
     out0 = dense_pair("block_0_0", "block_0_1", _input_block(p["input_block"], x))
-    out1 = dense_pair("block_1_0", "block_1_1", _down(p["down_0"], out0))
-    out2 = dense_pair("block_2_0", "block_2_1", _down(p["down_1"], out1))
-    out3 = dense_pair("block_3_0", "block_3_1", _down(p["down_2"], out2))
+    out1 = dense_pair("block_1_0", "block_1_1", down(p["down_0"], out0))
+    out2 = dense_pair("block_2_0", "block_2_1", down(p["down_1"], out1))
+    out3 = dense_pair("block_3_0", "block_3_1", down(p["down_2"], out2))
     out4 = dense_pair("block_2_2", "block_2_3", _up(p["up_2"], out3, out2))
     out5 = dense_pair("block_1_2", "block_1_3", _up(p["up_1"], out4, out1))
     out6 = dense_pair("block_0_2", "block_0_3", _up(p["up_0"], out5, out0))
