@@ -161,8 +161,14 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    ``--tensor-parallel`` and the pipelined T = 20 sampler at S = 2,
    microbatch 2 (1e-4), ``all_processes_mean``; kernel-1 launches and
    times per rank beside one process's (two ranks share one card: no
-   speedup); then one nccl rank through ``denoise_cli --tensor-parallel``
-   with torchrun's environment.
+   speedup); spatially partitioned training (``batch_sharding="spatial"``):
+   two "flax" SGD steps of RDUNet-32, f32, acc 1, on one 2048^2 image split
+   in two bands of 1024 rows, the first held against one process's
+   (STEP_RTOL / STEP_ATOL), 14 kernel-1 launches a step on each rank, all
+   on the tensor cores, no block input that is not channels_last; per step
+   and rank the gloo host copies, ms and peak memory beside one process's;
+   then one nccl rank through ``denoise_cli --tensor-parallel`` with
+   torchrun's environment.
 
 23. The accuracy protocol (``scripts/train_accuracy.py``), cut: RDUNet-32
    supervised at 256^2, bf16, engine "flax", 64 train and 16 held-out
@@ -188,6 +194,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    (``--switch-worker``; the switches are read at import): f32 and bf16 step
    times, params after one f32 SGD step within STEP_RTOL / STEP_ATOL of
    the off step's.
+26. The runner scripts in this process: ``scripts/measure_sidd_eval.py
+   --scenes 1 --engines flax,pallas`` (RDUNetT-32, bf16, T = 20, 24 blocks
+   of 256^2; the engines within 0.05 dB) and ``scripts/run_search.py
+   --trials 2 --epochs 1 --size 64``: exit 0, finite PSNR/SSIM and trial
+   values, kernel-1 launches all on the tensor cores.
 
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
@@ -2728,6 +2739,9 @@ EXPORT_BATCHES = (8, 3)
 # parallelism, the pipelined sampler.
 MULTI_WORLD, TILE_SIDE, PP_MICROBATCH = 2, 2048, 2
 PARAM_SHARDINGS = ("replicated", "fsdp", "tp")
+# ... and spatially partitioned training: one image of SPATIAL_SIDE^2, its
+# rows split in MULTI_WORLD bands, one "flax" SGD step at accumulation 1
+SPATIAL_SIDE = 2048
 TILE_RTOL, TILE_ATOL = 1e-4, 1e-5  # tests/test_tiles_and_tb.py:30
 MULTI_TOL = 1e-4                   # TP forward, pipelined sampler (__graft_entry__.py:159,180)
 
@@ -2912,6 +2926,59 @@ def multi_device_sgd_step(torch, kind, mode, cks, device, batch, rows=None):
     return params, loss, ms, fb.launches - before, sharded_fraction(state)
 
 
+def spatial_sgd_steps(torch, cks, device, batch, layout):
+    """Two "flax" SGD steps of RDUNet-32 (f32, accumulation 1) on one image
+    under ``batch_sharding=layout`` (``"spatial"``: this rank's band):
+    params and global loss after the first; per step the kernel-1 launches
+    (all, tensor-core), the gloo host copies, DenoisingBlock inputs that
+    were not channels_last (each a layout copy before the kernel), ms
+    (the second step: the first picks cuDNN's algorithms), and the second
+    step's peak memory, absolute and above what was allocated before it."""
+    from vub_image_denoising_tpu_torch.models import RDUNet
+    from vub_image_denoising_tpu_torch.nn.blocks import DenoisingBlock
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as fb
+    from vub_image_denoising_tpu_torch.parallel import mesh as pm
+    from vub_image_denoising_tpu_torch.train import SupervisedTrainer, TrainState
+    from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
+
+    model, _ = load_pth(cks["rdunet"], RDUNet(3, BASE_FILTERS))
+    trainer = SupervisedTrainer(model, accumulation_steps=1, engine="flax", device=device,
+                                batch_sharding=layout)
+    state = trainer.init(steps_per_epoch=TRAIN_STEPS)
+    sgd = TrainState.create(state.params, _SGD(trainer.clip_norm), state.parallel)
+    noisy, clean = (trainer.put(t) for t in batch)
+    not_cl = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: not_cl.append(
+        not a[0].is_contiguous(memory_format=torch.channels_last)))
+        for m in model.modules() if isinstance(m, DenoisingBlock)]
+    out = {"rows": noisy.shape[2], "steps": []}
+    try:
+        for i in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            allocated = torch.cuda.memory_allocated()
+            before = (fb.launches, fb.tc_launches, pm.host_copies(), len(not_cl))
+            t0 = time.perf_counter()
+            _, loss = trainer._step(sgd, noisy, clean)
+            loss = float(trainer.global_mean(loss))
+            torch.cuda.synchronize()
+            out["steps"].append({
+                "ms": (time.perf_counter() - t0) * 1e3, "launches": fb.launches - before[0],
+                "tc_launches": fb.tc_launches - before[1],
+                "host_copies": pm.host_copies() - before[2],
+                "layout_copies": sum(not_cl[before[3]:]),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "peak_above_bytes": torch.cuda.max_memory_allocated() - allocated})
+            if i == 0:
+                out["loss"] = loss
+                out["params"] = {k: v.detach().cpu().clone()
+                                 for k, v in model.state_dict().items()}
+    finally:
+        for h in hooks:
+            h.remove()
+    return out
+
+
 def multi_device_main_path(torch, device):
     """Phase 22 (module docstring): two gloo ranks on the card against one
     process, and one nccl rank through the CLI's init path."""
@@ -2924,8 +2991,10 @@ def multi_device_main_path(torch, device):
         gen = torch.Generator().manual_seed(22)
         clean = torch.rand(TRAIN_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE, generator=gen) * 2 - 1
         batch = (clean + SIGMA * torch.randn(clean.shape, generator=gen), clean)
+        clean = torch.rand(1, 3, SPATIAL_SIDE, SPATIAL_SIDE, generator=gen) * 2 - 1
+        spatial_batch = (clean + SIGMA * torch.randn(clean.shape, generator=gen), clean)
         rng = np.random.RandomState(22)
-        inp = {"batch": batch, "cks": cks,
+        inp = {"batch": batch, "cks": cks, "spatial_batch": spatial_batch,
                "tile": (rng.uniform(-1, 1, (TILE_SIDE, TILE_SIDE, 3)) * 0.5).astype(np.float32),
                "x8": rng.uniform(-1, 1, (8, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)}
         torch.save(inp, os.path.join(tmp, "inputs.pt"))
@@ -2935,6 +3004,11 @@ def multi_device_main_path(torch, device):
         for kind in ("supervised", "diffusion"):
             refs[kind] = multi_device_sgd_step(torch, kind, "replicated", cks, device, batch)
             one[f"{kind}_step_ms"] = refs[kind][2]
+        refs["spatial"] = spatial_sgd_steps(torch, cks, device, spatial_batch, "batch")
+        one["spatial"] = {k: v for k, v in refs["spatial"].items() if k != "params"}
+        print(f"spatial reference, one process, 1 x 3 x {SPATIAL_SIDE}^2: steps "
+              f"{[round(st['ms'], 1) for st in one['spatial']['steps']]} ms, kernel-1 launches "
+              f"{[st['launches'] for st in one['spatial']['steps']]}", flush=True)
         from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
 
         forward, _ = build_apply(cks["rdunet"], "rdunet", BASE_FILTERS, device=device)
@@ -2949,6 +3023,7 @@ def multi_device_main_path(torch, device):
         refs["pipeline"] = sampler(x8).cpu().numpy()
         one["sampler_ms"] = cuda_ms(torch, lambda: sampler(x8), 1)
         out["one_process"] = one
+        torch.cuda.empty_cache()  # the ranks share the card with this process
 
         port = free_port()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multirank-worker",
@@ -3003,6 +3078,7 @@ def multi_device_main_path(torch, device):
                       f"{res['ms'][name]:.1f} ms", flush=True)
                 if not ok:
                     fail(f"rank {r}: {name} disagrees with one process")
+            rec["spatial"] = check_spatial_rank(r, res["spatial"], refs["spatial"])
             if abs(res["mean"] - 0.5) > 1e-12 or res["host_copies"] == 0:
                 fail(f"rank {r}: all_processes_mean {res['mean']}, host copies "
                      f"{res['host_copies']}")
@@ -3014,6 +3090,36 @@ def multi_device_main_path(torch, device):
     print(f"multi-device phase: {out['phase_sec']:.1f} s (two ranks share one card: their "
           "times are not a speedup)", flush=True)
     return out
+
+
+def check_spatial_rank(r, res, ref):
+    """Phase 22's spatial case on rank ``r`` against one process: params after
+    the first SGD step within STEP_RTOL / STEP_ATOL, the loss within
+    LOSS_RTOL, 14 kernel-1 launches a step, all on the tensor cores, no
+    layout copy before the kernel.  Prints and returns the record."""
+    worst = max(((v - ref["params"][k]).abs() / (STEP_ATOL + STEP_RTOL * ref["params"][k].abs()))
+                .max().item() for k, v in res["params"].items())
+    rec = {k: v for k, v in res.items() if k != "params"}
+    rec["worst"] = worst
+    print(f"multi-device rank {r} spatial SGD step, 1 x 3 x {SPATIAL_SIDE}^2 in bands of "
+          f"{res['rows']} rows: loss {res['loss']:.7f} vs one process {ref['loss']:.7f}; params "
+          f"worst |diff| / (atol {STEP_ATOL} + rtol {STEP_RTOL}*|p|) = {worst:.3f} (must be <= 1)",
+          flush=True)
+    for i, (st, one) in enumerate(zip(res["steps"], ref["steps"])):
+        print(f"multi-device rank {r} spatial step {i}: {st['ms']:.1f} ms (one process "
+              f"{one['ms']:.1f}); {st['launches']} kernel-1 launches, {st['tc_launches']} on the "
+              f"tensor cores; {st['host_copies']} gloo host copies; {st['layout_copies']} "
+              f"layout copies before the kernel; peak {st['peak_bytes'] / 2**30:.3f} GiB, "
+              f"{st['peak_above_bytes'] / 2**30:.3f} above the step's start (one process "
+              f"{one['peak_bytes'] / 2**30:.3f}, {one['peak_above_bytes'] / 2**30:.3f})",
+              flush=True)
+        if (st["launches"] != 14 or st["tc_launches"] != 14 or st["layout_copies"]
+                or st["host_copies"] == 0):
+            fail(f"rank {r}: the spatial step {i} launched {st['launches']} blocks "
+                 f"({st['tc_launches']} tensor-core), {st['layout_copies']} layout copies")
+    if worst > 1 or abs(res["loss"] - ref["loss"]) > LOSS_RTOL * abs(ref["loss"]):
+        fail(f"rank {r}: the spatial step disagrees with one process")
+    return rec
 
 
 def free_port():
@@ -3082,6 +3188,9 @@ def multirank_worker(rank, world, port, tmp):
              res["fraction"][key]) = multi_device_sgd_step(
                 torch, kind, mode, cks, device, inp["batch"], (lo, lo + TRAIN_BATCH // world))
             print(f"{key} step: {res['ms'][key]:.1f} ms", flush=True)
+    res["spatial"] = spatial_sgd_steps(torch, cks, device, inp["spatial_batch"], "spatial")
+    res["launches"]["spatial"] = sum(st["launches"] for st in res["spatial"]["steps"])
+    print(f"spatial steps: {[round(st['ms'], 1) for st in res['spatial']['steps']]} ms", flush=True)
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -3133,6 +3242,18 @@ RUNNER_ARGS = ["--n-images", "3", "--size", "64", "--batch-size", "3",
 SWITCH_CASES = {"off": {}, "precombine": {"VUB_PRECOMBINE_MIN_C": "32"},
                 "bwd_precombine": {"VUB_BWD_PRECOMBINE": "32"},
                 "down_matmul_bwd": {"VUB_DOWN_MATMUL_BWD": "1"}}
+
+
+# Phase 26: the port's runner scripts, in this process on the card:
+# measure_sidd_eval at its defaults (RDUNetT-32, bf16, T = 20, 24 blocks of
+# 256^2 a scene) on one scene through two engines, and run_search (2 trials
+# of one epoch at 64^2, its other defaults).
+SIDD_SCRIPT_ARGS = ["--scenes", "1", "--engines", "flax,pallas"]
+# evaluate_sidd's sampler calls per engine: one warm-up, a batch of 8 per
+# call over the scene's 24 blocks, two for the device time
+SIDD_SCRIPT_CALLS = 1 + 24 // 8 + 2
+RUN_SEARCH_ARGS = ["--trials", "2", "--epochs", "1", "--size", "64"]
+RUN_SEARCH_STEPS = 64 // 16  # the runner's --n-train over its --batch-size
 
 
 class _Tee(io.TextIOBase):
@@ -3379,6 +3500,87 @@ def runner_and_switches_main_path(torch, device, tmp, paths):
     return out
 
 
+def runner_scripts_main_path(torch):
+    """Phase 26 (module docstring): each script's exit code, seconds and
+    kernel-1 launches by variant (all on the tensor cores, as many as the
+    samplers and steps it ran); measure_sidd_eval's finite PSNR/SSIM per
+    engine (it fails itself unless the engines agree within 0.05 dB),
+    run_search's trial CSV with a finite PSNR a trial and its sidecar."""
+    import csv
+
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.scripts import measure_sidd_eval, run_search
+    from vub_image_denoising_tpu_torch.search import hyperparams
+
+    phase_t0 = time.perf_counter()
+    out, results = {}, {}
+    measure = measure_sidd_eval.measure
+
+    def kept(*args, **kwargs):  # main's results, kept for the checks
+        results.update(measure(*args, **kwargs))
+        return results
+
+    def run(name, main, argv):
+        before = counts(k1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        out[name] = {"rc": rc, "sec": time.perf_counter() - t0,
+                     "launches": variant_counts(k1, before)}
+        print(f"{name}: rc {rc}, {out[name]['sec']:.1f} s, kernel-1 launches "
+              f"{out[name]['launches']}", flush=True)
+        if rc != 0 or out[name]["launches"]["tc"] != out[name]["launches"]["all"]:
+            fail(f"{name} {argv}: rc {rc}, launches {out[name]['launches']}")
+
+    def check_launches(name, want):
+        out[name]["want_launches"] = want
+        print(f"{name}: {out[name]['launches']['all']} kernel-1 launches, want {want}",
+              flush=True)
+        if out[name]["launches"]["all"] != want:
+            fail(f"{name}: {out[name]['launches']} kernel-1 launches, want {want}")
+
+    measure_sidd_eval.measure = kept
+    try:
+        run("sidd_script", measure_sidd_eval.main, SIDD_SCRIPT_ARGS)
+    finally:
+        measure_sidd_eval.measure = measure
+    keys = ("avg_psnr", "avg_ssim", "avg_inference_time_ms", "device_inference_time_ms",
+            "n_blocks")
+    out["sidd_script"]["engines"] = {e: {k: r[k] for k in keys} for e, r in results.items()}
+    if sorted(results) != ["flax", "pallas"] or not all(
+            math.isfinite(r["avg_psnr"]) and math.isfinite(r["avg_ssim"])
+            and r["n_blocks"] == measure_sidd_eval.BLOCKS_PER_SCENE for r in results.values()):
+        fail(f"measure_sidd_eval: {out['sidd_script']['engines']}")
+    check_launches("sidd_script", len(results) * SIDD_SCRIPT_CALLS * 14 * TIMESTEPS)
+    evaluate, sampled = hyperparams.evaluate_trial_psnr, []
+
+    def counted_evaluate(trainer, *args):  # each trial's samplers' T (a pruned trial runs one)
+        sampled.append(trainer.timesteps)
+        return evaluate(trainer, *args)
+
+    hyperparams.evaluate_trial_psnr = counted_evaluate
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "trials.csv")
+        try:
+            run("search_script", run_search.main,
+                RUN_SEARCH_ARGS + ["--csv", csv_path, "--cache-dir", os.path.join(tmp, "cache")])
+        finally:
+            hyperparams.evaluate_trial_psnr = evaluate
+        with open(csv_path) as f:
+            rows = list(csv.DictReader(f))
+        with open(csv_path + ".study.json") as f:
+            out["search_script"]["study"] = json.load(f)
+    out["search_script"]["psnr"] = [float(r["psnr"]) for r in rows]
+    if (out["search_script"]["study"]["trials"] != 2 or not rows
+            or not all(math.isfinite(v) for v in out["search_script"]["psnr"])):
+        fail(f"run_search: trial rows {rows}, study {out['search_script']['study']}")
+    # each trial's epoch of steps at accumulation 4, and the T-step samplers
+    check_launches("search_script", 14 * (2 * RUN_SEARCH_STEPS * ACCUMULATION + sum(sampled)))
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    return out
+
+
 def switch_worker(tmp, name):
     """``--switch-worker``: in this fresh process (the switches are read at
     import) time the "xla" supervised step of RDUNet-32 on 8 x 256^2, acc 4,
@@ -3515,8 +3717,10 @@ def main():
         phase_sec[24] = gan_protocol["phase_sec"]
         runner = runner_and_switches_main_path(torch, device, tmp, trained)
         phase_sec[25] = runner["phase_sec"]
-    print("phases 23-25: " + ", ".join(f"{k}: {phase_sec[k]:.1f} s" for k in (23, 24, 25))
-          + f"; {sum(phase_sec[k] for k in (23, 24, 25)):.1f} s together", flush=True)
+    scripts = runner_scripts_main_path(torch)
+    phase_sec[26] = scripts["phase_sec"]
+    print("phases 23-26: " + ", ".join(f"{k}: {phase_sec[k]:.1f} s" for k in (23, 24, 25, 26))
+          + f"; {sum(phase_sec[k] for k in (23, 24, 25, 26)):.1f} s together", flush=True)
     remat_launches = {k: sum(r["tc"] for r in v["launches"]) for k, v in remat.items()}
     search_launches = {"run_search": sum(t["launches"]["all"] for t in search["trials"]),
                        "fixed": sum(t["launches"]["all"] for t in search["fixed"])}
@@ -3601,7 +3805,9 @@ def main():
                          + comparison["launches"]["all"] + export["launches"]
                          + multi["launches"]
                          + sum(v["all"] for v in protocol["launches"].values())
-                         + runner["launches"]["all"]),
+                         + runner["launches"]["all"]
+                         + scripts["sidd_script"]["launches"]["all"]
+                         + scripts["search_script"]["launches"]["all"]),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -3621,6 +3827,10 @@ def main():
                                  "compare": comparison["launches"],
                                  "export": {k: v["launches"] for k, v in export["cases"].items()},
                                  "multi_device": [r["launches"] for r in multi["ranks"]],
+                                 "spatial": [[st["launches"] for st in r["spatial"]["steps"]]
+                                             for r in multi["ranks"]],
+                                 "sidd_script": scripts["sidd_script"]["launches"],
+                                 "search_script": scripts["search_script"]["launches"],
                                  "protocol": protocol["launches"],
                                  "runner_trained": runner["launches"],
                                  "trainable_block": trainable["fused_denoising_block"]},
@@ -3650,6 +3860,7 @@ def main():
             "protocol": protocol,
             "gan_protocol": gan_protocol,
             "runner_and_switches": runner,
+            "runner_scripts": scripts,
             "phase_sec": phase_sec,
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc",
                                                   "fused_block_wide_tc")},

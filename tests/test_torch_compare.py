@@ -46,10 +46,24 @@ from vub_image_denoising_tpu_torch.utils.checkpoint import params_to_state_dict
 
 
 @pytest.fixture
-def no_jax_opt():
+def no_jax_opt(monkeypatch):
+    """Most of XLA's optimisations off, and the CPU's elemental emitter in
+    place of its fusion emitters (the JAX compare runner's compiles take
+    about half the time: the same HLO, so the same ops and precision)."""
+    from jax._src import compiler
+
     before = jax.config.values["jax_disable_most_optimizations"]
     jax.config.update("jax_disable_most_optimizations", True)
     jax_strict()
+    get = compiler.get_compile_options
+
+    def without_fusion_emitters(*args, **kwargs):
+        options = get(*args, **kwargs)
+        options.env_option_overrides = [*options.env_option_overrides,
+                                        ("xla_cpu_use_fusion_emitters", False)]
+        return options
+
+    monkeypatch.setattr(compiler, "get_compile_options", without_fusion_emitters)
     yield
     jax.config.update("jax_disable_most_optimizations", before)
 
@@ -175,7 +189,7 @@ FIGURES = ["metrics.png", "dists.png", "comparison_plot_with_zones_and_arrows.pn
 def test_plots_smoke(tmp_path, low_dpi):
     """All 11 figures of the library (tests/test_search_and_eval.py's)."""
     rng = np.random.RandomState(0)
-    n = 24
+    n = 6  # two epochs x three noise levels: every figure's groups
     imgs = [rng.rand(32, 32, 3).astype(np.float32) for _ in range(n)]
     metrics = {"epoch": [40] * (n // 2) + [43] * (n // 2),
                "noise_level": list(np.tile([15, 30, 50], n // 3)),

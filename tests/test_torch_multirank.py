@@ -29,7 +29,14 @@ time is their cost).  Scenarios:
   have an exact gradient of about zero, as ``tests/test_torch_gan.py``
   notes);
 - an FSDP trainer's checkpoint resumed by a replicated trainer: params and
-  the Adam state equal.
+  the Adam state equal;
+- spatially partitioned training (``batch_sharding="spatial"``): RDUNet(3, 8)
+  on 2 x 3 x 64 x 64 with H split in two bands of 32 rows (4 rows a band at
+  the deepest scale, exactly a DenoisingBlock's halo), JAX's weights: the
+  band forward, gathered, against JAX's forward on the whole image (2e-4),
+  and one SGD step against one rank's (loss rel 1e-5, as
+  ``tests/test_sharding.py``'s spatial test; params within STEP_RTOL /
+  STEP_ATOL); ``shard_spatial`` refuses H = 48 over the two ranks.
 """
 
 import os
@@ -55,7 +62,7 @@ from vub_image_denoising_tpu_torch.models import RDUNet
 from vub_image_denoising_tpu_torch.parallel.tiles import denoise_large_image
 from vub_image_denoising_tpu_torch.train import DiffusionTrainer, SupervisedTrainer, TrainState
 from vub_image_denoising_tpu_torch.train.gan import RCAGANTrainer
-from vub_image_denoising_tpu_torch.utils.checkpoint import params_to_state_dict, save_pth
+from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth, params_to_state_dict, save_pth
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-6
@@ -76,9 +83,11 @@ WORKER = textwrap.dedent(r"""
     from vub_image_denoising_tpu_torch.eval.sidd_cli import load_sampler
     from vub_image_denoising_tpu_torch.models import RDUNet
     from vub_image_denoising_tpu_torch.parallel.fsdp import sharded_fraction
+    from vub_image_denoising_tpu_torch.parallel.spatial import band_forward
     from vub_image_denoising_tpu_torch.train import (DiffusionTrainer, SupervisedTrainer,
                                                      TrainState)
     from vub_image_denoising_tpu_torch.train.gan import RCAGANTrainer
+    from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
 
     inp = torch.load(f"{tmp}/inputs.pt", weights_only=False)  # written by the test
     out = {}
@@ -112,6 +121,23 @@ WORKER = textwrap.dedent(r"""
             out["fsdp_ckpt"] = {"params": {k: v.detach().clone()
                                            for k, v in model.state_dict().items()},
                                 "opt": state.optimizer_state()}
+
+    model, _ = load_pth(f"{tmp}/spatial.pth", RDUNet(3, 8))
+    trainer = SupervisedTrainer(model, accumulation_steps=2, device="cpu",
+                                batch_sharding="spatial")
+    state = trainer.init(steps_per_epoch=1)
+    group = trainer.mesh.group("data")
+    with torch.no_grad():
+        band = band_forward(model, trainer.put(inp["spatial_x"]), group)
+    out["spatial_forward"] = pm.all_gather(band, 2, group)
+    _, loss = trainer._step(sgd(trainer, state), trainer.put(inp["spatial_x"]),
+                            trainer.put(inp["spatial_y"]))
+    out["spatial_loss"] = float(trainer.global_mean(loss))
+    out["spatial_params"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    try:
+        pm.shard_spatial(inp["spatial_x"][:, :, :48], trainer.mesh)
+    except ValueError as e:
+        out["spatial_refused"] = str(e)
 
     trainer = DiffusionTrainer(base_filters=8, timesteps=4, accumulation_steps=2, device="cpu")
     state = trainer.init(steps_per_epoch=1, seed=0)
@@ -193,11 +219,14 @@ def run(tmp_path_factory):
     inp["pp_noisy"] = torch.from_numpy(rng.uniform(-1, 1, (5, 16, 16, 3)).astype(np.float32))
     for k in ("gan_degraded", "gan_gt"):
         inp[k] = torch.from_numpy(rng.uniform(-1, 1, (4, 1, 16, 16)))
+    for k in ("spatial_x", "spatial_y"):
+        inp[k] = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32))
     torch.save(inp, f"{tmp}/inputs.pt")
 
     jax_models = {"tiles": (JRDUNet(3, 4), (jnp.zeros((1, 16, 16, 3)),)),
                   "tp": (JRDUNet(3, 8), (jnp.zeros((1, 16, 16, 3)),)),
-                  "pp": (JRDUNetT(4), (jnp.zeros((1, 16, 16, 3)), jnp.zeros((1,))))}
+                  "pp": (JRDUNetT(4), (jnp.zeros((1, 16, 16, 3)), jnp.zeros((1,)))),
+                  "spatial": (JRDUNet(3, 8), (jnp.zeros((1, 16, 16, 3)),))}
     params = {}
     for i, (name, (model, example)) in enumerate(jax_models.items()):
         params[name] = jax_params(model, 10 + i, *example)
@@ -227,6 +256,8 @@ def run(tmp_path_factory):
                                  jnp.asarray(inp["tp_x"]))),
         "pp": np.asarray(run_jax(lambda p, n: jdiff.improved_sampling(
             jax_models["pp"][0].apply, p, n), params["pp"], jnp.asarray(inp["pp_noisy"].numpy()))),
+        "spatial": np.asarray(run_jax(jax_models["spatial"][0].apply, params["spatial"],
+                                      jnp.asarray(inp["spatial_x"].permute(0, 2, 3, 1).numpy()))),
     }
     return {"tmp": tmp, "inp": inp, "ranks": ranks, "jax": refs}
 
@@ -334,3 +365,22 @@ def test_fsdp_checkpoint_resumes_in_a_replicated_trainer(run):
             if name != "step":
                 assert v.shape == params[i].shape
     assert run["ranks"][0]["host_copies"] == 0  # CPU tensors go to gloo as they are
+
+
+def test_spatial_band_forward_matches_jax_on_the_whole_image(run):
+    for r in run["ranks"]:
+        got = r["spatial_forward"].numpy().transpose(0, 2, 3, 1)
+        assert got.shape == (2, 64, 64, 3)
+        np.testing.assert_allclose(got, run["jax"]["spatial"], rtol=2e-4, atol=2e-4)
+        assert "deepest" in r["spatial_refused"]
+
+
+def test_spatial_step_over_two_ranks_equals_one_rank(run):
+    model, _ = load_pth(f"{run['tmp']}/spatial.pth", RDUNet(3, 8))
+    trainer = SupervisedTrainer(model, accumulation_steps=2, device="cpu")
+    state = trainer.init(steps_per_epoch=1)
+    _, loss = trainer._step(sgd(trainer, state), run["inp"]["spatial_x"],
+                            run["inp"]["spatial_y"])
+    for r in run["ranks"]:
+        assert r["spatial_loss"] == pytest.approx(float(loss), rel=1e-5)
+        assert_params_close(r["spatial_params"], model.state_dict())

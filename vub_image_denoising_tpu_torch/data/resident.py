@@ -15,8 +15,8 @@ the same items.  JAX's ``key``/``sharding`` arguments are ``seed``/``split``
 and ``device`` and ``mesh`` here: over several ranks each rank gathers only
 its rows of every batch from the bank, and the transform's draws are made
 for the whole batch (``data.device.transform_rows``), as ``PatchLoader``
-does.  The bank holds whole patches: JAX's random-crop
-``patch`` option is not ported.
+does.  ``patch`` crops each sample at a random offset, as JAX's
+``dynamic_slice`` crop does; the offsets are drawn for the whole batch too.
 
 Not for datasets that do not fit in the card's memory beside the train state.
 """
@@ -39,6 +39,10 @@ class DeviceBankLoader:
       batch_size: samples per yielded batch.
       transform: ``(generator, clean_u8_batch, *aux) -> batch`` (e.g.
         ``device.degrade_and_normalize``).  Defaults to identity.
+      patch: square crop size; ``None`` or the bank's own H x W means whole
+        images.  Each sample's top, then left offset is drawn from the
+        step's stream after the indices (JAX splits ``kt, kl`` after
+        ``ki``); the transform gets the stream that follows.
       mode: ``"sample"`` — indices drawn with replacement each step;
         ``"permute"`` — one permutation of the logical index space per epoch,
         batches are its slices (shuffle=True semantics); ``"sequential"`` —
@@ -62,6 +66,7 @@ class DeviceBankLoader:
         images_u8: np.ndarray,
         batch_size: int,
         transform: Optional[Callable] = None,
+        patch: Optional[int] = None,
         mode: str = "sample",
         n_logical: Optional[int] = None,
         index_map: Optional[Callable] = None,
@@ -80,6 +85,11 @@ class DeviceBankLoader:
             )
         if mode not in ("sample", "permute", "sequential"):
             raise ValueError(f"unknown mode '{mode}'")
+        _, h, w, _ = images_u8.shape
+        patch = int(patch) if patch else None
+        if patch is not None and (patch > h or patch > w):
+            raise ValueError(f"patch {patch} exceeds bank images {h}x{w}")
+        self.patch = patch if patch is not None and (patch, patch) != (h, w) else None
         self.batch_size = int(batch_size)
         self.mode = mode
         self.epoch = 0
@@ -115,8 +125,14 @@ class DeviceBankLoader:
     def _gather(self, g, idx):
         bank_idx, aux = self.index_map(idx)
         lo, hi = rank_rows(len(idx), self.mesh)
-        return transform_rows(self.transform, g, (self.bank[bank_idx[lo:hi]],), lo, hi,
-                              len(idx), aux)
+        images = self.bank[bank_idx[lo:hi]]
+        if self.patch is not None:
+            _, h, w, _ = self.bank.shape
+            m = len(idx)
+            tops = torch.randint(0, h - self.patch + 1, (m,), generator=g, device=self.device)
+            lefts = torch.randint(0, w - self.patch + 1, (m,), generator=g, device=self.device)
+            images = crop(images, tops[lo:hi], lefts[lo:hi], self.patch)
+        return transform_rows(self.transform, g, (images,), lo, hi, len(idx), aux)
 
     def __iter__(self):
         epoch = self.epoch
@@ -138,6 +154,16 @@ class DeviceBankLoader:
                 idx = torch.arange(start, stop, device=self.device)
             if len(idx) >= (1 if self.mesh is None else self.mesh.size("data")):
                 yield self._gather(g, idx)
+
+
+def crop(images, tops, lefts, patch: int):
+    """The ``patch`` x ``patch`` window of each (H, W, C) image of ``images``
+    at its (top, left) offset: JAX's ``vmap`` of ``dynamic_slice``, for
+    offsets within the image."""
+    r = torch.arange(patch, device=images.device)
+    rows = (tops[:, None] + r)[:, :, None]
+    cols = (lefts[:, None] + r)[:, None, :]
+    return images[torch.arange(len(images), device=images.device)[:, None, None], rows, cols]
 
 
 def bank_loader_from_patches(

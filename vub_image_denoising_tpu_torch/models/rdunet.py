@@ -81,17 +81,19 @@ class _RDUNetCore(nn.Module):
         self.block_0_3 = DenoisingBlock(f0, f0 // 2, f0, g)
         self.output_block = OutputBlock(f0, out_channels, g)
 
+    def run_block(self, name, h):
+        """DenoisingBlock ``name`` on h, recomputed in the backward where
+        ``remat`` says so."""
+        block = getattr(self, name)
+        if name in self._remat_blocks and torch.is_grad_enabled():
+            # the blocks draw no random numbers: no RNG state to keep
+            return checkpoint(block, h, use_reentrant=False, preserve_rng_state=False)
+        return block(h)
+
     def _pair(self, scale, first, h):
-        """Blocks ``block_{scale}_{first}`` then ``_{first + 1}`` on h, each
-        recomputed in the backward where ``remat`` says so."""
+        """Blocks ``block_{scale}_{first}`` then ``_{first + 1}`` on h."""
         for i in (first, first + 1):
-            name = f"block_{scale}_{i}"
-            block = getattr(self, name)
-            if name in self._remat_blocks and torch.is_grad_enabled():
-                # the blocks draw no random numbers: no RNG state to keep
-                h = checkpoint(block, h, use_reentrant=False, preserve_rng_state=False)
-            else:
-                h = block(h)
+            h = self.run_block(f"block_{scale}_{i}", h)
         return h
 
     def trunk(self, x):

@@ -11,6 +11,7 @@ from .mesh import (
     put_replicated,
     replicate,
     shard_batch,
+    shard_spatial,
 )
 from .pipeline import make_pp_mesh, pipeline_sample_fn, pipelined_sampling
 from .tiles import denoise_large_image

@@ -339,6 +339,41 @@ def shard_batch(x, mesh: Optional[Mesh] = None, axis: str = "data"):
     return x if mesh is None else x.to(mesh.device)
 
 
+DOWNSAMPLING = 8  # the RDUNet trunk halves H three times
+BLOCK_HALO = 4    # rows a DenoisingBlock (four 3x3 convs) needs from each neighbour
+
+
+def spatial_band_rows(h: int, n: int, i: int):
+    """(start, stop): rank ``i``'s band of ``h`` image rows split over ``n``
+    ranks.  H must divide by ``n * DOWNSAMPLING`` (even bands at every
+    scale), and over several ranks the band at the deepest scale must hold
+    the ``BLOCK_HALO`` rows a neighbour's DenoisingBlock takes from it (the
+    halos come from the neighbours only)."""
+    if h % (n * DOWNSAMPLING):
+        raise ValueError(f"H = {h} does not divide by {n} ranks x {DOWNSAMPLING} "
+                         "(the trunk's downsampling)")
+    band = h // n
+    if n > 1 and band // DOWNSAMPLING < BLOCK_HALO:
+        raise ValueError(f"H = {h} over {n} ranks leaves {band // DOWNSAMPLING} rows a band at "
+                         f"the deepest scale, fewer than the {BLOCK_HALO}-row halo of a "
+                         "DenoisingBlock there")
+    return i * band, (i + 1) * band
+
+
+def shard_spatial(x, mesh: Optional[Mesh] = None, axis: str = "data"):
+    """This rank's contiguous band of rows (dim 2) of an NCHW batch ``x`` that
+    every rank holds, on the mesh's device: the counterpart of
+    ``shard_batch`` for spatially partitioned training, one image larger
+    than one device's memory (``parallel/spatial.py`` runs the model on the
+    bands).  Raises ``ValueError`` where ``spatial_band_rows`` does."""
+    x = torch.as_tensor(x)
+    n = 1 if mesh is None else mesh.size(axis)
+    i = 0 if mesh is None else mesh.index(axis)
+    start, stop = spatial_band_rows(x.shape[2], n, i)
+    x = x[:, :, start:stop]
+    return x if mesh is None else x.to(mesh.device)
+
+
 def put_batch(batch, mesh: Optional[Mesh] = None, axis: str = "data"):
     """``shard_batch`` of each tensor of a tuple (or one tensor)."""
     if isinstance(batch, (tuple, list)):

@@ -35,6 +35,7 @@ from .schedules import make_optimizer
 from .state import ShardedTrainerMixin, TrainState
 
 ENGINES = ("flax", "xla", "pallas")
+BATCH_SHARDINGS = ("batch", "spatial")
 
 
 def effective_accumulation(n: int, requested: int) -> int:
@@ -141,7 +142,17 @@ class SupervisedTrainer(ShardedTrainerMixin):
     rank's ``train_step`` takes its rows of the global batch
     (``parallel.mesh.shard_batch``; with ``"tp"`` the whole batch) and
     returns the global batch's loss; ``param_sharding`` is ``"replicated"``,
-    ``"fsdp"`` or ``"tp"`` (``ShardedTrainerMixin``)."""
+    ``"fsdp"`` or ``"tp"`` (``ShardedTrainerMixin``).
+
+    ``batch_sharding="spatial"`` splits every image's rows over the ranks in
+    place of the batch, as JAX's ``shard_spatial`` placement of the same
+    step: ``train_step`` takes the whole batch (from a loader given no
+    mesh, so every rank draws the same images), ``put`` keeps this rank's
+    band (``parallel.mesh.shard_spatial``), the forward is the band forward
+    (``parallel.spatial``: a halo exchange before every 3x3 conv), the loss
+    is the band's mean, and the ranks' gradients are averaged as under data
+    parallelism.  Engine ``"flax"`` and ``param_sharding="replicated"``
+    only; ``evaluate_batch`` gathers the bands."""
 
     model: Any
     lr: float = 1e-4
@@ -159,10 +170,19 @@ class SupervisedTrainer(ShardedTrainerMixin):
     device: Any = None
     param_sharding: str = "replicated"
     mesh: Any = None  # parallel.mesh.Mesh; default: every rank on "data" ("tp": on "model")
+    batch_sharding: str = "batch"  # "spatial": each rank takes a band of rows of every image
 
     def init(self, steps_per_epoch: int) -> TrainState:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r} (want one of {ENGINES})")
+        if self.batch_sharding not in BATCH_SHARDINGS:
+            raise ValueError(f"unknown batch_sharding {self.batch_sharding!r} "
+                             f"(want one of {BATCH_SHARDINGS})")
+        spatial = self.batch_sharding == "spatial"
+        if spatial and (self.param_sharding != "replicated" or self.engine != "flax"
+                        or self.apply_fn is not None):
+            raise ValueError("batch_sharding='spatial' takes param_sharding='replicated' and "
+                             "engine='flax' (the model's modules), no apply_fn")
         self.device = resolve_device(self.device)
         self.model.to(self.device)
         if self.device.type == "cuda":
@@ -177,7 +197,12 @@ class SupervisedTrainer(ShardedTrainerMixin):
             tp = self.tp
             apply = lambda p, x: tp.apply(p, x)  # noqa: E731
         elif apply is None:
-            if self.engine == "flax":
+            if spatial:
+                from ..parallel.spatial import band_forward
+
+                group = self.mesh.group("data")
+                apply = lambda p, x: band_forward(self.model, x, group)  # noqa: E731
+            elif self.engine == "flax":
                 apply = lambda p, x: self.model(x)  # noqa: E731 — p are its parameters
             else:
                 eng, rm = self.engine, self.remat
@@ -191,11 +216,17 @@ class SupervisedTrainer(ShardedTrainerMixin):
         self._step = make_supervised_train_step(apply, self.accumulation_steps,
                                                 compute_dtype=self.compute_dtype,
                                                 kernel_weights_fn=kernel_weights_fn,
-                                                data_shards=self.data_shards())
+                                                # every rank holds every row of a band batch
+                                                data_shards=1 if spatial else self.data_shards())
         return state
 
     def put(self, batch):
-        """A batch on the trainer's device, channels_last on the card."""
+        """A batch on the trainer's device, channels_last on the card (under
+        ``batch_sharding="spatial"`` this rank's band of rows)."""
+        if self.batch_sharding == "spatial":
+            from ..parallel.mesh import shard_spatial
+
+            batch = shard_spatial(batch, self.mesh)
         return put_batch(batch, self.device)
 
     def train_step(self, state, noisy, clean):
@@ -217,7 +248,12 @@ class SupervisedTrainer(ShardedTrainerMixin):
 
     def evaluate_batch(self, state, noisy):
         with torch.no_grad():
-            return self.forward_fn(state.params, self.put(noisy).to(self.compute_dtype))
+            y = self.forward_fn(state.params, self.put(noisy).to(self.compute_dtype))
+        if self.batch_sharding == "spatial":
+            from ..parallel.mesh import all_gather
+
+            y = all_gather(y, 2, self.mesh.group("data"))
+        return y
 
     def maybe_checkpoint(self, state, epoch: int, force: bool = False, name: str = ""):
         """Every ``checkpoint_every`` epochs (or with ``force``, on preemption)
