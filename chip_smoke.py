@@ -146,13 +146,14 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    launches per batch; one batch of 2 x 128^2 with BM3D on the card and on
    the CPU, the metric tables within COMPARE_PSNR_TOL / COMPARE_TOL.
 
-21. Export (``eval/export.py``): RDUNet-32 in f32 and bf16 and the T = 20
-   sampler of RDUNetT-32 at 256^2, from seeded weights: 14, 14 and 280
-   kernel-1 operator nodes in the programs; each artifact saved, then
-   loaded and called in a fresh process (``--export-worker``) at batch 8
-   and 3: 14 / 280 launches per call, all on the tensor cores, outputs
-   held to the module path on the card (SERVED_F32_TOL, the sampler
-   SERVED_SAMPLER_F32_TOL, bf16 BF16_REL_TOL * max|y|), times beside it.
+21. Export (``eval/export.py``): RDUNet-32 in f32 and bf16 and the
+   sampler of RDUNetT-32 at 256^2, cut to T = EXPORT_TIMESTEPS = 4, from
+   seeded weights: 14, 14 and 56 kernel-1 operator nodes in the programs;
+   each artifact saved, then loaded and called in a fresh process
+   (``--export-worker``) at batch 8 and 3: 14 / 56 launches per call, all
+   on the tensor cores, outputs held to the module path on the card
+   (SERVED_F32_TOL, the sampler 2 * 4 * SERVED_F32_TOL, bf16 BF16_REL_TOL *
+   max|y|), times beside it.
 22. Two ranks on the one card (``--multirank-worker``, gloo: NCCL refuses
    two ranks on one GPU): the supervised and diffusion "flax" SGD steps of
    RDUNet(T)-32, 8 x 256^2, acc 4, f32, under replicated, fsdp and tp
@@ -167,8 +168,12 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    (STEP_RTOL / STEP_ATOL), 14 kernel-1 launches a step on each rank, all
    on the tensor cores, no block input that is not channels_last; per step
    and rank the gloo host copies, ms and peak memory beside one process's;
-   then one nccl rank through ``denoise_cli --tensor-parallel`` with
-   torchrun's environment.
+   the same for ``DiffusionTrainer(batch_sharding="spatial")`` on
+   RDUNetT-32 with loss weights (0, 1, 0.3) (the SSIM window's own halo) and
+   one process's timesteps, then one banded ``validate`` on 1 x 512^2 at
+   T = 20: 280 launches a rank, the gathered output within
+   SERVED_SAMPLER_F32_TOL of one process's; then one nccl rank through
+   ``denoise_cli --tensor-parallel`` with torchrun's environment.
 
 23. The accuracy protocol (``scripts/train_accuracy.py``), cut: RDUNet-32
    supervised at 256^2, bf16, engine "flax", 64 train and 16 held-out
@@ -193,12 +198,20 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    ``VUB_DOWN_MATMUL_BWD``) beside all off, each in a fresh process
    (``--switch-worker``; the switches are read at import): f32 and bf16 step
    times, params after one f32 SGD step within STEP_RTOL / STEP_ATOL of
-   the off step's.
+   the off step's.  The four workers start together and warm up; each then
+   waits at a gate until the one before it has finished, so no two time or
+   step at once.
 26. The runner scripts in this process: ``scripts/measure_sidd_eval.py
    --scenes 1 --engines flax,pallas`` (RDUNetT-32, bf16, T = 20, 24 blocks
    of 256^2; the engines within 0.05 dB) and ``scripts/run_search.py
    --trials 2 --epochs 1 --size 64``: exit 0, finite PSNR/SSIM and trial
-   values, kernel-1 launches all on the tensor cores.
+   values, kernel-1 launches all on the tensor cores; then the protocol's
+   tooling: ``run_diffusion_gap --dry-run`` (the eight stage-1 commands),
+   ``run_diffusion_gap_stage2 --dry-run`` on a synthetic stage-1 log (the
+   composed winner's command), ``regen_artifacts --check``, and the
+   ``gap-ssim`` configuration through ``run_diffusion_gap --only gap-ssim``,
+   cut to 2 epochs of 128 images and 8 held-out ones: exit 0, a finite
+   PSNR, 56 launches a step and 280 per sampler call.
 
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
@@ -2734,14 +2747,18 @@ def profile_sampler(torch):
 EXPORT_CASES = (("rdunet_f32", "rdunet", False), ("rdunet_bf16", "rdunet", True),
                 ("sampler_f32", "diffusion", False))
 EXPORT_BATCHES = (8, 3)
+EXPORT_TIMESTEPS = 4  # the exported sampler's T, cut from 20 (its trace time grows with T)
 # Phase 22: two ranks on the one card (gloo; NCCL refuses two ranks on one
 # GPU): the trainers' steps under each param sharding, tiles, tensor
 # parallelism, the pipelined sampler.
 MULTI_WORLD, TILE_SIDE, PP_MICROBATCH = 2, 2048, 2
 PARAM_SHARDINGS = ("replicated", "fsdp", "tp")
 # ... and spatially partitioned training: one image of SPATIAL_SIDE^2, its
-# rows split in MULTI_WORLD bands, one "flax" SGD step at accumulation 1
-SPATIAL_SIDE = 2048
+# rows split in MULTI_WORLD bands, two "flax" SGD steps at accumulation 1 of
+# each trainer (the diffusion step with SSIM on, whose window takes a halo of
+# its own), then one banded diffusion validate on 1 x 3 x SPATIAL_VAL_SIDE^2
+SPATIAL_SIDE, SPATIAL_VAL_SIDE = 2048, 512
+SPATIAL_DIFFUSION_WEIGHTS = (0.0, 1.0, 0.3)  # mse, charbonnier, ssim
 TILE_RTOL, TILE_ATOL = 1e-4, 1e-5  # tests/test_tiles_and_tb.py:30
 MULTI_TOL = 1e-4                   # TP forward, pipelined sampler (__graft_entry__.py:159,180)
 
@@ -2784,13 +2801,13 @@ def export_main_path(torch, device):
         refs = {}
         for name, arch, bf16 in EXPORT_CASES:
             t0 = time.perf_counter()
-            programs = build_exported(cks[arch], arch, BASE_FILTERS, TIMESTEPS, size=IMAGE_SIZE,
-                                      bf16=bf16, platforms=(device.type,))
+            programs = build_exported(cks[arch], arch, BASE_FILTERS, EXPORT_TIMESTEPS,
+                                      size=IMAGE_SIZE, bf16=bf16, platforms=(device.type,))
             export_sec = time.perf_counter() - t0
             nodes = kernel_nodes(programs[device.type])
             path = save_exported(programs, os.path.join(tmp, f"{name}.pt2"))
-            want = 14 * (TIMESTEPS if arch == "diffusion" else 1)
-            forward, _ = build_apply(cks[arch], arch, BASE_FILTERS, TIMESTEPS, bf16=bf16,
+            want = 14 * (EXPORT_TIMESTEPS if arch == "diffusion" else 1)
+            forward, _ = build_apply(cks[arch], arch, BASE_FILTERS, EXPORT_TIMESTEPS, bf16=bf16,
                                      device=device)
             x8 = xs[8].to(device)
             refs[name] = {b: forward(x.to(device)).cpu() for b, x in xs.items()}
@@ -2811,11 +2828,11 @@ def export_main_path(torch, device):
         got = torch.load(os.path.join(tmp, "export_results.pt"))
         for name, arch, bf16 in EXPORT_CASES:
             rec, res = out["cases"][name], got[name]
-            per_call = 14 * (TIMESTEPS if arch == "diffusion" else 1)
+            per_call = 14 * (EXPORT_TIMESTEPS if arch == "diffusion" else 1)
             errs = {b: max_err(res["y"][b], refs[name][b]) for b in EXPORT_BATCHES}
             scale = refs[name][8].abs().max().item()
-            tol = (BF16_REL_TOL * scale if bf16 else
-                   SERVED_SAMPLER_F32_TOL if arch == "diffusion" else SERVED_F32_TOL)
+            tol = (BF16_REL_TOL * scale if bf16 else 2 * EXPORT_TIMESTEPS * SERVED_F32_TOL
+                   if arch == "diffusion" else SERVED_F32_TOL)
             rec.update({"artifact_ms": res["ms"], "load_sec": res["load_sec"],
                         "launches": res["launches"], "max_abs_err": max(errs.values()),
                         "tol": tol})
@@ -2926,27 +2943,42 @@ def multi_device_sgd_step(torch, kind, mode, cks, device, batch, rows=None):
     return params, loss, ms, fb.launches - before, sharded_fraction(state)
 
 
-def spatial_sgd_steps(torch, cks, device, batch, layout):
-    """Two "flax" SGD steps of RDUNet-32 (f32, accumulation 1) on one image
-    under ``batch_sharding=layout`` (``"spatial"``: this rank's band):
-    params and global loss after the first; per step the kernel-1 launches
-    (all, tensor-core), the gloo host copies, DenoisingBlock inputs that
-    were not channels_last (each a layout copy before the kernel), ms
-    (the second step: the first picks cuDNN's algorithms), and the second
-    step's peak memory, absolute and above what was allocated before it."""
+def spatial_sgd_steps(torch, cks, device, batch, layout, kind="supervised", val=None):
+    """Two "flax" SGD steps (f32, accumulation 1) on one image under
+    ``batch_sharding=layout`` (``"spatial"``: this rank's band): of RDUNet-32
+    (``kind="supervised"``) or of ``DiffusionTrainer``'s RDUNetT-32 from seed
+    0 with loss weights SPATIAL_DIFFUSION_WEIGHTS, its timesteps drawn from
+    the trainer's seed-0 generator alike in every process
+    (``"diffusion"``).  Returns the params and global loss after the first;
+    per step the kernel-1 launches (all, tensor-core), the gloo host copies,
+    DenoisingBlock inputs that were not channels_last (each a layout copy
+    before the kernel), ms (the second step: the first picks cuDNN's
+    algorithms), and the second step's peak memory, absolute and above what
+    was allocated before it.  With ``val`` (a (noisy, clean) pair) the
+    diffusion trainer then runs ``validate`` on it: its loss, its output
+    (gathered from the bands), launches and ms."""
     from vub_image_denoising_tpu_torch.models import RDUNet
     from vub_image_denoising_tpu_torch.nn.blocks import DenoisingBlock
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as fb
     from vub_image_denoising_tpu_torch.parallel import mesh as pm
-    from vub_image_denoising_tpu_torch.train import SupervisedTrainer, TrainState
+    from vub_image_denoising_tpu_torch.train import DiffusionTrainer, SupervisedTrainer, TrainState
     from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
 
-    model, _ = load_pth(cks["rdunet"], RDUNet(3, BASE_FILTERS))
-    trainer = SupervisedTrainer(model, accumulation_steps=1, engine="flax", device=device,
-                                batch_sharding=layout)
-    state = trainer.init(steps_per_epoch=TRAIN_STEPS)
+    if kind == "supervised":
+        model, _ = load_pth(cks["rdunet"], RDUNet(3, BASE_FILTERS))
+        trainer = SupervisedTrainer(model, accumulation_steps=1, engine="flax", device=device,
+                                    batch_sharding=layout)
+        state = trainer.init(steps_per_epoch=TRAIN_STEPS)
+    else:
+        trainer = DiffusionTrainer(base_filters=BASE_FILTERS, timesteps=TIMESTEPS,
+                                   accumulation_steps=1, loss_weights=SPATIAL_DIFFUSION_WEIGHTS,
+                                   engine="flax", device=device, batch_sharding=layout)
+        state = trainer.init(steps_per_epoch=TRAIN_STEPS, seed=0)
+        model = trainer.unet
     sgd = TrainState.create(state.params, _SGD(trainer.clip_norm), state.parallel)
     noisy, clean = (trainer.put(t) for t in batch)
+    step_args = (sgd, noisy, clean) if kind == "supervised" else (sgd, trainer.generator, noisy,
+                                                                  clean)
     not_cl = []
     hooks = [m.register_forward_pre_hook(lambda m, a: not_cl.append(
         not a[0].is_contiguous(memory_format=torch.channels_last)))
@@ -2959,7 +2991,7 @@ def spatial_sgd_steps(torch, cks, device, batch, layout):
             allocated = torch.cuda.memory_allocated()
             before = (fb.launches, fb.tc_launches, pm.host_copies(), len(not_cl))
             t0 = time.perf_counter()
-            _, loss = trainer._step(sgd, noisy, clean)
+            _, loss = trainer._step(*step_args)
             loss = float(trainer.global_mean(loss))
             torch.cuda.synchronize()
             out["steps"].append({
@@ -2973,6 +3005,17 @@ def spatial_sgd_steps(torch, cks, device, batch, layout):
                 out["loss"] = loss
                 out["params"] = {k: v.detach().cpu().clone()
                                  for k, v in model.state_dict().items()}
+        if val is not None:
+            torch.cuda.synchronize()
+            before = (fb.launches, fb.tc_launches, pm.host_copies(), len(not_cl))
+            t0 = time.perf_counter()
+            vloss, y = trainer.validate(state, [val])
+            torch.cuda.synchronize()
+            out["validate"] = {
+                "ms": (time.perf_counter() - t0) * 1e3, "loss": vloss, "y": y.float().cpu(),
+                "launches": fb.launches - before[0], "tc_launches": fb.tc_launches - before[1],
+                "host_copies": pm.host_copies() - before[2],
+                "layout_copies": sum(not_cl[before[3]:])}
     finally:
         for h in hooks:
             h.remove()
@@ -2993,8 +3036,11 @@ def multi_device_main_path(torch, device):
         batch = (clean + SIGMA * torch.randn(clean.shape, generator=gen), clean)
         clean = torch.rand(1, 3, SPATIAL_SIDE, SPATIAL_SIDE, generator=gen) * 2 - 1
         spatial_batch = (clean + SIGMA * torch.randn(clean.shape, generator=gen), clean)
+        clean = torch.rand(1, 3, SPATIAL_VAL_SIDE, SPATIAL_VAL_SIDE, generator=gen) * 2 - 1
+        spatial_val = (clean + SIGMA * torch.randn(clean.shape, generator=gen), clean)
         rng = np.random.RandomState(22)
         inp = {"batch": batch, "cks": cks, "spatial_batch": spatial_batch,
+               "spatial_val": spatial_val,
                "tile": (rng.uniform(-1, 1, (TILE_SIDE, TILE_SIDE, 3)) * 0.5).astype(np.float32),
                "x8": rng.uniform(-1, 1, (8, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)}
         torch.save(inp, os.path.join(tmp, "inputs.pt"))
@@ -3005,10 +3051,15 @@ def multi_device_main_path(torch, device):
             refs[kind] = multi_device_sgd_step(torch, kind, "replicated", cks, device, batch)
             one[f"{kind}_step_ms"] = refs[kind][2]
         refs["spatial"] = spatial_sgd_steps(torch, cks, device, spatial_batch, "batch")
-        one["spatial"] = {k: v for k, v in refs["spatial"].items() if k != "params"}
-        print(f"spatial reference, one process, 1 x 3 x {SPATIAL_SIDE}^2: steps "
-              f"{[round(st['ms'], 1) for st in one['spatial']['steps']]} ms, kernel-1 launches "
-              f"{[st['launches'] for st in one['spatial']['steps']]}", flush=True)
+        refs["spatial_diffusion"] = spatial_sgd_steps(torch, cks, device, spatial_batch, "batch",
+                                                      "diffusion", spatial_val)
+        for key in ("spatial", "spatial_diffusion"):
+            one[key] = {k: v for k, v in refs[key].items() if k != "params"}
+            print(f"{key} reference, one process, 1 x 3 x {SPATIAL_SIDE}^2: steps "
+                  f"{[round(st['ms'], 1) for st in one[key]['steps']]} ms, kernel-1 launches "
+                  f"{[st['launches'] for st in one[key]['steps']]}", flush=True)
+        one["spatial_diffusion"]["validate"] = {
+            k: v for k, v in refs["spatial_diffusion"]["validate"].items() if k != "y"}
         from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
 
         forward, _ = build_apply(cks["rdunet"], "rdunet", BASE_FILTERS, device=device)
@@ -3079,6 +3130,8 @@ def multi_device_main_path(torch, device):
                 if not ok:
                     fail(f"rank {r}: {name} disagrees with one process")
             rec["spatial"] = check_spatial_rank(r, res["spatial"], refs["spatial"])
+            rec["spatial_diffusion"] = check_spatial_rank(r, res["spatial_diffusion"],
+                                                          refs["spatial_diffusion"], "diffusion")
             if abs(res["mean"] - 0.5) > 1e-12 or res["host_copies"] == 0:
                 fail(f"rank {r}: all_processes_mean {res['mean']}, host copies "
                      f"{res['host_copies']}")
@@ -3092,21 +3145,24 @@ def multi_device_main_path(torch, device):
     return out
 
 
-def check_spatial_rank(r, res, ref):
-    """Phase 22's spatial case on rank ``r`` against one process: params after
-    the first SGD step within STEP_RTOL / STEP_ATOL, the loss within
-    LOSS_RTOL, 14 kernel-1 launches a step, all on the tensor cores, no
-    layout copy before the kernel.  Prints and returns the record."""
+def check_spatial_rank(r, res, ref, kind="supervised"):
+    """Phase 22's spatial case of ``kind`` on rank ``r`` against one process:
+    params after the first SGD step within STEP_RTOL / STEP_ATOL, the loss
+    within LOSS_RTOL, 14 kernel-1 launches a step, all on the tensor cores,
+    no layout copy before the kernel; for the diffusion case also the banded
+    validate: 14 * TIMESTEPS launches, all on the tensor cores, and its
+    gathered output within SERVED_SAMPLER_F32_TOL of one process's.  Prints
+    and returns the record."""
     worst = max(((v - ref["params"][k]).abs() / (STEP_ATOL + STEP_RTOL * ref["params"][k].abs()))
                 .max().item() for k, v in res["params"].items())
-    rec = {k: v for k, v in res.items() if k != "params"}
+    rec = {k: v for k, v in res.items() if k not in ("params", "validate")}
     rec["worst"] = worst
-    print(f"multi-device rank {r} spatial SGD step, 1 x 3 x {SPATIAL_SIDE}^2 in bands of "
+    print(f"multi-device rank {r} spatial {kind} SGD step, 1 x 3 x {SPATIAL_SIDE}^2 in bands of "
           f"{res['rows']} rows: loss {res['loss']:.7f} vs one process {ref['loss']:.7f}; params "
           f"worst |diff| / (atol {STEP_ATOL} + rtol {STEP_RTOL}*|p|) = {worst:.3f} (must be <= 1)",
           flush=True)
     for i, (st, one) in enumerate(zip(res["steps"], ref["steps"])):
-        print(f"multi-device rank {r} spatial step {i}: {st['ms']:.1f} ms (one process "
+        print(f"multi-device rank {r} spatial {kind} step {i}: {st['ms']:.1f} ms (one process "
               f"{one['ms']:.1f}); {st['launches']} kernel-1 launches, {st['tc_launches']} on the "
               f"tensor cores; {st['host_copies']} gloo host copies; {st['layout_copies']} "
               f"layout copies before the kernel; peak {st['peak_bytes'] / 2**30:.3f} GiB, "
@@ -3115,10 +3171,25 @@ def check_spatial_rank(r, res, ref):
               flush=True)
         if (st["launches"] != 14 or st["tc_launches"] != 14 or st["layout_copies"]
                 or st["host_copies"] == 0):
-            fail(f"rank {r}: the spatial step {i} launched {st['launches']} blocks "
+            fail(f"rank {r}: the spatial {kind} step {i} launched {st['launches']} blocks "
                  f"({st['tc_launches']} tensor-core), {st['layout_copies']} layout copies")
     if worst > 1 or abs(res["loss"] - ref["loss"]) > LOSS_RTOL * abs(ref["loss"]):
-        fail(f"rank {r}: the spatial step disagrees with one process")
+        fail(f"rank {r}: the spatial {kind} step disagrees with one process")
+    if "validate" in ref:
+        v, one = res["validate"], ref["validate"]
+        err = max_err(v["y"], one["y"])
+        want = 14 * TIMESTEPS
+        rec["validate"] = {k: x for k, x in v.items() if k != "y"}
+        rec["validate"]["max_abs_err"] = err
+        print(f"multi-device rank {r} banded validate, 1 x 3 x {SPATIAL_VAL_SIDE}^2 at T = "
+              f"{TIMESTEPS}: {v['ms']:.1f} ms (one process {one['ms']:.1f}); loss {v['loss']:.7f} "
+              f"vs {one['loss']:.7f}; gathered output max_abs_err {err:.3e} vs one process (tol "
+              f"{SERVED_SAMPLER_F32_TOL}); {v['launches']} kernel-1 launches (want {want}), "
+              f"{v['tc_launches']} on the tensor cores; {v['host_copies']} gloo host copies; "
+              f"{v['layout_copies']} layout copies", flush=True)
+        if (tuple(v["y"].shape) != tuple(one["y"].shape) or not err <= SERVED_SAMPLER_F32_TOL
+                or v["launches"] != want or v["tc_launches"] != want or v["layout_copies"]):
+            fail(f"rank {r}: the banded validate disagrees with one process")
     return rec
 
 
@@ -3190,7 +3261,13 @@ def multirank_worker(rank, world, port, tmp):
             print(f"{key} step: {res['ms'][key]:.1f} ms", flush=True)
     res["spatial"] = spatial_sgd_steps(torch, cks, device, inp["spatial_batch"], "spatial")
     res["launches"]["spatial"] = sum(st["launches"] for st in res["spatial"]["steps"])
-    print(f"spatial steps: {[round(st['ms'], 1) for st in res['spatial']['steps']]} ms", flush=True)
+    res["spatial_diffusion"] = spatial_sgd_steps(torch, cks, device, inp["spatial_batch"],
+                                                 "spatial", "diffusion", inp["spatial_val"])
+    res["launches"]["spatial_diffusion"] = (
+        sum(st["launches"] for st in res["spatial_diffusion"]["steps"])
+        + res["spatial_diffusion"]["validate"]["launches"])
+    for key in ("spatial", "spatial_diffusion"):
+        print(f"{key} steps: {[round(st['ms'], 1) for st in res[key]['steps']]} ms", flush=True)
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -3254,6 +3331,12 @@ SIDD_SCRIPT_ARGS = ["--scenes", "1", "--engines", "flax,pallas"]
 SIDD_SCRIPT_CALLS = 1 + 24 // 8 + 2
 RUN_SEARCH_ARGS = ["--trials", "2", "--epochs", "1", "--size", "64"]
 RUN_SEARCH_STEPS = 64 // 16  # the runner's --n-train over its --batch-size
+# ... and the protocol's tooling: the dry runs, the manifest's check, and the
+# gap-ssim configuration of run_diffusion_gap (its COMMON flags: batch 128,
+# acc 4, bf16, T = 20) cut to GAP_EPOCHS epochs of one step and GAP_VAL
+# held-out images (one sampler call an evaluation)
+GAP_CONFIG, GAP_EPOCHS, GAP_TRAIN, GAP_VAL = "gap-ssim", 2, 128, 8
+GAP_CUT_ARGS = ["--epochs", str(GAP_EPOCHS), "--n-train", str(GAP_TRAIN), "--n-val", str(GAP_VAL)]
 
 
 class _Tee(io.TextIOBase):
@@ -3270,12 +3353,13 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def run_protocol(torch, ta, argv, per_eval):
+def run_protocol(torch, ta, argv, per_eval, steps_per_epoch=PROTOCOL_TRAIN // PROTOCOL_BATCH):
     """``ta.main(argv)`` on the card with kernel 1's launches counted: those
     of each held-out evaluation apart from the training's.  Fails unless
-    every training step launched 14 * ACCUMULATION blocks, every
-    evaluation ``per_eval``, all on the tensor cores, and the losses are
-    finite.  Returns the row, the losses, the launches and the seconds."""
+    every training step (``steps_per_epoch`` an epoch) launched 14 *
+    ACCUMULATION blocks, every evaluation ``per_eval``, all on the tensor
+    cores, and the losses are finite.  Returns the row, the losses, the
+    launches and the seconds."""
     import contextlib
 
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
@@ -3303,7 +3387,7 @@ def run_protocol(torch, ta, argv, per_eval):
               if line.startswith("epoch ") and " loss " in line]
     total = counts(k1)
     epochs = len(losses)
-    steps = epochs * (PROTOCOL_TRAIN // PROTOCOL_BATCH)
+    steps = epochs * steps_per_epoch
     train = [t - sum(e[i] for e in evals) for i, t in enumerate(total)]
     rec = {"row": row, "losses": losses, "sec": sec, "steps": steps,
            "launches": {"all": total[0], "tc": total[1], "wide": total[2]},
@@ -3475,15 +3559,31 @@ def runner_and_switches_main_path(torch, device, tmp, paths):
         fail(f"runner: card vs CPU {bad}, launches {out['launches']}")
 
     out["switches"] = {}
-    for name, env in SWITCH_CASES.items():
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--switch-worker", tmp,
-                               name], capture_output=True, text=True, timeout=600,
-                              env={**os.environ, **env})
-        print(proc.stdout, end="", flush=True)
-        if proc.returncode != 0:
-            fail(f"the switch worker {name} failed:\n{proc.stderr[-4000:]}")
-        res = torch.load(os.path.join(tmp, f"switch_{name}.pt"), weights_only=False)
-        out["switches"][name] = {"env": env, "ms": res["ms"], "launches": res["launches"]}
+    # the workers start together and warm up; each times and steps only
+    # once its gate file is there, which is made after the previous one ended
+    logs, procs = {}, {}
+    try:
+        for name, env in SWITCH_CASES.items():
+            logs[name] = open(os.path.join(tmp, f"switch_{name}.log"), "w+")
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--switch-worker", tmp, name],
+                stdout=logs[name], stderr=subprocess.STDOUT, text=True,
+                env={**os.environ, **env})
+        for name, env in SWITCH_CASES.items():
+            open(os.path.join(tmp, f"switch_{name}.go"), "w").close()
+            rc = procs[name].wait(timeout=600)
+            logs[name].seek(0)
+            log = logs[name].read()
+            print("".join(line + "\n" for line in log.splitlines()
+                          if line.startswith("switch worker")), end="", flush=True)
+            if rc != 0:
+                fail(f"the switch worker {name} failed:\n{log[-4000:]}")
+            res = torch.load(os.path.join(tmp, f"switch_{name}.pt"), weights_only=False)
+            out["switches"][name] = {"env": env, "ms": res["ms"], "launches": res["launches"]}
+    finally:
+        for name, proc in procs.items():
+            proc.kill()
+            logs[name].close()
     off = torch.load(os.path.join(tmp, "switch_off.pt"), weights_only=False)["params"]
     for name in SWITCH_CASES:
         rec = out["switches"][name]
@@ -3577,14 +3677,100 @@ def runner_scripts_main_path(torch):
         fail(f"run_search: trial rows {rows}, study {out['search_script']['study']}")
     # each trial's epoch of steps at accumulation 4, and the T-step samplers
     check_launches("search_script", 14 * (2 * RUN_SEARCH_STEPS * ACCUMULATION + sum(sampled)))
+    out.update(tooling_main_path(torch))
     out["phase_sec"] = time.perf_counter() - phase_t0
+    return out
+
+
+def tooling_main_path(torch):
+    """Phase 26's protocol tooling (module docstring): the dry runs' commands,
+    the manifest's check on an empty tree, and GAP_CONFIG through
+    ``run_diffusion_gap --only`` with ``train_accuracy`` run in this process
+    (``run_protocol``'s launch checks: 56 a step, 280 an evaluation)."""
+    import contextlib
+
+    from vub_image_denoising_tpu_torch.scripts import (regen_artifacts, run_diffusion_gap,
+                                                       run_diffusion_gap_stage2, sweep)
+    from vub_image_denoising_tpu_torch.scripts import train_accuracy as ta
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            rc = run_diffusion_gap.main(["--dry-run"])
+        cmds = [ln for ln in tee.lines.getvalue().splitlines() if ln.startswith("+ python -m ")]
+        out["gap_dry_run"] = {"rc": rc, "commands": len(cmds)}
+        if rc != 0 or len(cmds) != len(run_diffusion_gap.CONFIGS) or not all(
+                run_diffusion_gap.MODULE in c for c in cmds):
+            fail(f"run_diffusion_gap --dry-run: rc {rc}, commands {cmds}")
+        # a stage-1 log: the biased-t and lr 4e-4 rows beat gap-base by more
+        # than MIN_GAIN_DB, the others do not
+        log = os.path.join(tmp, "stage1.jsonl")
+        gains = {"gap-biased": 0.6, "gap-lr4": 0.9, "gap-ssim": 0.1, "gap-mse": -0.5}
+        with open(log, "w") as f:
+            for tag, argv in run_diffusion_gap.grid():
+                args = ta.build_arg_parser().parse_args(argv)
+                f.write(json.dumps({
+                    "tag": tag, "psnr_best_db": 26.0 + gains.get(tag, 0.0), "lr": args.lr,
+                    "loss_weights": args.loss_weights, "t_dist": args.t_dist,
+                    "timesteps": args.timesteps, "base_filters": args.base_filters,
+                    "epochs": args.epochs, "train_seconds": 600.0}) + "\n")
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            rc = run_diffusion_gap_stage2.main(["--log", log, "--dry-run"])
+        running = [ln for ln in tee.lines.getvalue().splitlines() if ln.startswith("running:")]
+        out["stage2_dry_run"] = {"rc": rc, "command": running}
+        if rc != 0 or len(running) != 1 or not all(
+                k in running[0] for k in ("--lr 0.0004", "--t-dist biased",
+                                          "--loss-weights 0,1,0 ", "--epochs 200")):
+            fail(f"run_diffusion_gap_stage2 --dry-run: rc {rc}, {running}")
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            rc = regen_artifacts.main(["--check", "--root", tmp])
+        summary = json.loads(tee.lines.getvalue().splitlines()[-1])
+        out["regen_check"] = {"rc": rc, **summary}
+        if rc != 0 or summary != {"live": 0,
+                                  "missing": [e[0] for e in regen_artifacts.MANIFEST]}:
+            fail(f"regen_artifacts --check on an empty tree: rc {rc}, {summary}")
+        out["dry_runs_sec"] = time.perf_counter() - t0
+
+        runs, run_command = [], sweep.run_command
+
+        def in_process(module, argv):
+            if module != run_diffusion_gap.MODULE:
+                fail(f"run_diffusion_gap ran {module}")
+            runs.append(run_protocol(torch, ta, argv, 14 * TIMESTEPS * -(-GAP_VAL // ta.EVAL_BATCH[
+                "diffusion"]), steps_per_epoch=GAP_TRAIN // 128))
+            return 0
+
+        sweep.run_command = in_process
+        t0 = time.perf_counter()
+        try:
+            rc = run_diffusion_gap.main(["--only", GAP_CONFIG, *GAP_CUT_ARGS,
+                                         "--cache-dir", os.path.join(tmp, "cache"),
+                                         "--out", os.path.join(tmp, "log.jsonl"),
+                                         "--ckpt-dir", os.path.join(tmp, "gap")])
+        finally:
+            sweep.run_command = run_command
+    rec = runs[0] if len(runs) == 1 else None
+    out["gap_script"] = {"rc": rc, "sec": time.perf_counter() - t0, "config": GAP_CONFIG,
+                         "row": rec and rec["row"], "launches": rec and rec["launches"],
+                         "per_step": rec and rec["per_step"], "per_eval": rec and rec["per_eval"]}
+    print(f"gap_script {GAP_CONFIG} ({' '.join(GAP_CUT_ARGS)}): rc {rc}, "
+          f"{out['gap_script']['sec']:.1f} s; dry runs {out['dry_runs_sec']:.1f} s", flush=True)
+    if (rc != 0 or rec is None or rec["row"]["tag"] != GAP_CONFIG
+            or rec["row"]["loss_weights"] != "0,1,0.3"
+            or not math.isfinite(rec["row"]["psnr_denoised_db"])):
+        fail(f"run_diffusion_gap --only {GAP_CONFIG}: rc {rc}, row {rec and rec['row']}")
     return out
 
 
 def switch_worker(tmp, name):
     """``--switch-worker``: in this fresh process (the switches are read at
-    import) time the "xla" supervised step of RDUNet-32 on 8 x 256^2, acc 4,
-    in f32 and bf16, and take one f32 SGD step (``compare_with_xla``'s
+    import) take a warm-up "xla" supervised step of RDUNet-32 on 8 x 256^2,
+    acc 4, in f32 and in bf16; once ``<tmp>/switch_<name>.go`` exists, time
+    the step in both and take one f32 SGD step (``compare_with_xla``'s
     recipe); save the params, times and kernel-1 launches."""
     import torch
 
@@ -3599,10 +3785,16 @@ def switch_worker(tmp, name):
     init = RDUNet(3, BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict()
     batches = make_batches(torch, device)
     res = {"ms": {}}
-    for short, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        trainer, state = make_trainer(torch, init, "xla", dtype)
+    timed = {short: make_trainer(torch, init, "xla", dtype)
+             for short, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    for trainer, state in timed.values():  # a warm-up step each, before the gate
+        trainer.train_step(state, *batches[0])
+    torch.cuda.synchronize()
+    while not os.path.exists(os.path.join(tmp, f"switch_{name}.go")):
+        time.sleep(0.05)
+    for short, (trainer, state) in timed.items():
         res["ms"][short] = cuda_ms(torch, lambda: trainer.train_step(state, *batches[0]), 4,
-                                   warmup=2)
+                                   warmup=1)
     trainer, state = make_trainer(torch, init, "xla", torch.float32)
     opt = torch.optim.SGD(list(state.params.values()), lr=1e-2)
     sgd = TrainState(state.params, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda k: 1.0),
@@ -3807,7 +3999,8 @@ def main():
                          + sum(v["all"] for v in protocol["launches"].values())
                          + runner["launches"]["all"]
                          + scripts["sidd_script"]["launches"]["all"]
-                         + scripts["search_script"]["launches"]["all"]),
+                         + scripts["search_script"]["launches"]["all"]
+                         + scripts["gap_script"]["launches"]["all"]),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -3829,8 +4022,13 @@ def main():
                                  "multi_device": [r["launches"] for r in multi["ranks"]],
                                  "spatial": [[st["launches"] for st in r["spatial"]["steps"]]
                                              for r in multi["ranks"]],
+                                 "spatial_diffusion": [
+                                     [st["launches"] for st in r["spatial_diffusion"]["steps"]]
+                                     + [r["spatial_diffusion"]["validate"]["launches"]]
+                                     for r in multi["ranks"]],
                                  "sidd_script": scripts["sidd_script"]["launches"],
                                  "search_script": scripts["search_script"]["launches"],
+                                 "gap_script": scripts["gap_script"]["launches"],
                                  "protocol": protocol["launches"],
                                  "runner_trained": runner["launches"],
                                  "trainable_block": trainable["fused_denoising_block"]},

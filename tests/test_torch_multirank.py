@@ -36,7 +36,15 @@ time is their cost).  Scenarios:
   band forward, gathered, against JAX's forward on the whole image (2e-4),
   and one SGD step against one rank's (loss rel 1e-5, as
   ``tests/test_sharding.py``'s spatial test; params within STEP_RTOL /
-  STEP_ATOL); ``shard_spatial`` refuses H = 48 over the two ranks.
+  STEP_ATOL); ``shard_spatial`` refuses H = 48 over the two ranks;
+- the diffusion trainer on bands (``DiffusionTrainer(batch_sharding=
+  "spatial")``): RDUNetT(8) on 1 x 3 x 64 x 64, loss weights (0, 1, 0.3)
+  (the SSIM term's own halo), accumulation 1, every rank drawing one
+  rank's timesteps: one SGD step against one rank's (STEP_RTOL /
+  STEP_ATOL) and the banded sampler, gathered, against one rank's (1e-4);
+  ``band_combined_loss`` with all three terms on, meaned over the ranks,
+  and its gathered ``pred`` gradient against JAX's ``combined_loss`` and
+  ``jax.grad`` of it on the whole image (rtol 1e-5, atol 1e-6).
 """
 
 import os
@@ -54,6 +62,7 @@ import torch
 from test_torch_fused_apply import numpy_params_like, run_jax
 from test_torch_rdunet import one_thread  # noqa: F401 — autouse
 from vub_image_denoising_tpu.diffusion import InterpolationDiffusion as JDiffusion
+from vub_image_denoising_tpu.diffusion.losses import combined_loss as jcombined_loss
 from vub_image_denoising_tpu.models.rdunet import RDUNet as JRDUNet
 from vub_image_denoising_tpu.models.rdunet import RDUNetT as JRDUNetT
 from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
@@ -67,6 +76,8 @@ from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth, params_to_s
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-6
 WORLD = 2
+BAND_STEP_WEIGHTS = (0.0, 1.0, 0.3)   # the diffusion band step: Charbonnier and SSIM
+BAND_LOSS_WEIGHTS = (0.5, 1.0, 0.3)   # the banded loss against JAX's: every term
 
 # Run by each rank: python -c WORKER rank world port tmp root
 WORKER = textwrap.dedent(r"""
@@ -83,7 +94,7 @@ WORKER = textwrap.dedent(r"""
     from vub_image_denoising_tpu_torch.eval.sidd_cli import load_sampler
     from vub_image_denoising_tpu_torch.models import RDUNet
     from vub_image_denoising_tpu_torch.parallel.fsdp import sharded_fraction
-    from vub_image_denoising_tpu_torch.parallel.spatial import band_forward
+    from vub_image_denoising_tpu_torch.parallel.spatial import band_combined_loss, band_forward
     from vub_image_denoising_tpu_torch.train import (DiffusionTrainer, SupervisedTrainer,
                                                      TrainState)
     from vub_image_denoising_tpu_torch.train.gan import RCAGANTrainer
@@ -138,6 +149,24 @@ WORKER = textwrap.dedent(r"""
         pm.shard_spatial(inp["spatial_x"][:, :, :48], trainer.mesh)
     except ValueError as e:
         out["spatial_refused"] = str(e)
+
+    trainer = DiffusionTrainer(base_filters=8, timesteps=4, accumulation_steps=1,
+                               loss_weights=inp["band_step_weights"], device="cpu",
+                               batch_sharding="spatial")
+    state = trainer.init(steps_per_epoch=1, seed=0)
+    _, loss = trainer._step(sgd(trainer, state), trainer.generator,
+                            trainer.put(inp["band_noisy"]), trainer.put(inp["band_clean"]))
+    out["band_diff_loss"] = float(trainer.global_mean(loss))
+    out["band_diff_params"] = {k: v.detach().clone()
+                               for k, v in trainer.unet.state_dict().items()}
+    out["band_sample"] = trainer.sample(state, inp["band_noisy"])
+    group = trainer.mesh.group("data")
+    pred = trainer.put(inp["loss_pred"]).requires_grad_()
+    share = band_combined_loss(pred, trainer.put(inp["loss_target"]), group,
+                               *inp["band_loss_weights"])
+    out["band_loss"] = float(trainer.global_mean(share.detach()))
+    out["band_loss_grad"] = pm.all_gather(
+        torch.autograd.grad(share / pm.group_size(group), pred)[0], 2, group)
 
     trainer = DiffusionTrainer(base_filters=8, timesteps=4, accumulation_steps=2, device="cpu")
     state = trainer.init(steps_per_epoch=1, seed=0)
@@ -221,6 +250,11 @@ def run(tmp_path_factory):
         inp[k] = torch.from_numpy(rng.uniform(-1, 1, (4, 1, 16, 16)))
     for k in ("spatial_x", "spatial_y"):
         inp[k] = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32))
+    for k in ("band_noisy", "band_clean", "loss_target"):
+        inp[k] = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 64, 64)).astype(np.float32))
+    inp["loss_pred"] = inp["loss_target"] + torch.from_numpy(
+        0.2 * rng.randn(1, 3, 64, 64).astype(np.float32))
+    inp["band_step_weights"], inp["band_loss_weights"] = BAND_STEP_WEIGHTS, BAND_LOSS_WEIGHTS
     torch.save(inp, f"{tmp}/inputs.pt")
 
     jax_models = {"tiles": (JRDUNet(3, 4), (jnp.zeros((1, 16, 16, 3)),)),
@@ -384,3 +418,44 @@ def test_spatial_step_over_two_ranks_equals_one_rank(run):
     for r in run["ranks"]:
         assert r["spatial_loss"] == pytest.approx(float(loss), rel=1e-5)
         assert_params_close(r["spatial_params"], model.state_dict())
+
+
+@pytest.fixture(scope="module")
+def one_rank_band(run):
+    """The one-rank diffusion step and sampler of the band scenario."""
+    trainer = DiffusionTrainer(base_filters=8, timesteps=4, accumulation_steps=1,
+                               loss_weights=BAND_STEP_WEIGHTS, device="cpu")
+    state = trainer.init(steps_per_epoch=1, seed=0)
+    _, loss = trainer._step(sgd(trainer, state), trainer.generator, run["inp"]["band_noisy"],
+                            run["inp"]["band_clean"])
+    return {"loss": float(loss), "params": trainer.unet.state_dict(),
+            "sample": trainer.sample(state, run["inp"]["band_noisy"])}
+
+
+def test_diffusion_band_step_over_two_ranks_equals_one_rank(run, one_rank_band):
+    for r in run["ranks"]:
+        assert r["band_diff_loss"] == pytest.approx(one_rank_band["loss"], rel=1e-5)
+        assert_params_close(r["band_diff_params"], one_rank_band["params"])
+
+
+def test_banded_sampler_gathered_equals_one_rank(run, one_rank_band):
+    for r in run["ranks"]:
+        assert r["band_sample"].shape == (1, 3, 64, 64)
+        torch.testing.assert_close(r["band_sample"], one_rank_band["sample"], rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_banded_combined_loss_and_grad_match_jax_on_the_whole_image(run):
+    def nhwc(t):
+        return jnp.asarray(t.permute(0, 2, 3, 1).numpy())
+
+    pred, target = nhwc(run["inp"]["loss_pred"]), nhwc(run["inp"]["loss_target"])
+
+    def loss(p, t):
+        return jcombined_loss(p, t, *BAND_LOSS_WEIGHTS)
+
+    want = float(run_jax(loss, pred, target))
+    want_grad = np.asarray(run_jax(jax.grad(loss), pred, target)).transpose(0, 3, 1, 2)
+    for r in run["ranks"]:
+        np.testing.assert_allclose(r["band_loss"], want, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(r["band_loss_grad"].numpy(), want_grad, rtol=1e-5, atol=1e-6)

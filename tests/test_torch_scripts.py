@@ -18,11 +18,13 @@
 
 import ast
 import csv
+import importlib
 import importlib.util
 import inspect
 import json
 import math
 import os
+import shlex
 
 import numpy as np
 import pytest
@@ -144,3 +146,194 @@ def test_measure_sidd_eval_synthetic_blocks(tmp_path):
         np.testing.assert_array_equal(blocks[i][0], noisy[i])
     with pytest.raises(SystemExit):
         measure_sidd_eval.main(["--content", "bogus"])
+
+
+# ---- the protocol's tooling against the repo's scripts/ ----
+
+def load_jax_script(name):
+    spec = importlib.util.spec_from_file_location(f"jax_{name}",
+                                                  os.path.join(REPO, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+GAP_BASE = {"tag": "gap-base", "psnr_best_db": 26.18, "lr": 2e-4, "loss_weights": "0,1,0",
+            "t_dist": "uniform", "timesteps": 20, "base_filters": 32, "train_seconds": 1278.0,
+            "epochs": 40}
+# stage-1 logs: the cases of tests/test_round4_scripts.py
+STAGE1_CASES = {
+    "picks_best": [dict(GAP_BASE, psnr_best_db=26.1),
+                   dict(GAP_BASE, tag="gap-ssim", psnr_best_db=27.3, loss_weights="0,1,0.3"),
+                   {"tag": "gap-stage2", "psnr_best_db": 99.0},
+                   {"tag": "ablate64", "psnr_best_db": 50.0}],
+    "partial_and_stage3": [dict(GAP_BASE, psnr_best_db=26.1),
+                           {"tag": "gap-lr4", "psnr_best_db": 99.0, "partial": True},
+                           dict(GAP_BASE, tag="gap-stage3", psnr_best_db=98.0, lr=4e-4,
+                                loss_weights="0,1,0.3", t_dist="biased")],
+    "greedy": [GAP_BASE,
+               dict(GAP_BASE, tag="gap-biased", t_dist="biased", psnr_best_db=26.92,
+                    train_seconds=1236.0),
+               dict(GAP_BASE, tag="gap-lr4", lr=4e-4, psnr_best_db=27.1, train_seconds=1240.0),
+               dict(GAP_BASE, tag="gap-mse", loss_weights="1,1,0", psnr_best_db=25.51),
+               dict(GAP_BASE, tag="gap-ssim-biased", loss_weights="0,1,0.3", t_dist="biased",
+                    psnr_best_db=26.5)],
+    "measured_combo": [dict(GAP_BASE, psnr_best_db=26.0),
+                       dict(GAP_BASE, tag="gap-biased", t_dist="biased", psnr_best_db=26.9),
+                       dict(GAP_BASE, tag="gap-ssim", loss_weights="0,1,0.3", psnr_best_db=26.4),
+                       dict(GAP_BASE, tag="gap-ssim-biased", t_dist="biased",
+                            loss_weights="0,1,0.3", psnr_best_db=26.2)],
+    "heavy": [dict(GAP_BASE, tag="gap-bf64", psnr_best_db=27.0, base_filters=64,
+                   train_seconds=2600.0)],
+}
+
+
+def knob_flags(cmd):
+    """The flags after the runner's module or script path."""
+    start = next(i for i, a in enumerate(cmd) if a.startswith("--"))
+    return cmd[start:]
+
+
+@pytest.mark.parametrize("case", sorted(STAGE1_CASES))
+def test_stage2_agrees_with_the_jax_script(case, tmp_path, capsys):
+    from vub_image_denoising_tpu_torch.scripts import run_diffusion_gap_stage2 as stage2
+
+    jax_stage2 = load_jax_script("run_diffusion_gap_stage2")
+    assert (stage2.KNOBS, stage2.MIN_GAIN_DB, stage2.STAGE1_CONFIGS) == (
+        jax_stage2.KNOBS, jax_stage2.MIN_GAIN_DB, jax_stage2.STAGE1_CONFIGS)
+    rows = STAGE1_CASES[case]
+    log = tmp_path / "log.jsonl"
+    log.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    assert stage2.pick_winner(str(log)) == jax_stage2.pick_winner(str(log))
+    gaps = stage2.load_stage1(str(log))
+    assert gaps == jax_stage2.load_stage1(str(log))
+    assert stage2.compose_winner(gaps) == jax_stage2.compose_winner(gaps)
+    best = stage2.compose_winner(gaps) or stage2.pick_winner(str(log))
+    for epochs, budget in ((200, 8600), (200, 3000), (120, None)):
+        if budget:
+            assert (stage2.fit_epochs_to_budget(best, epochs, budget)
+                    == jax_stage2.fit_epochs_to_budget(best, epochs, budget))
+        cmd = stage2.stage2_command(best, epochs, budget, tag="gap-stage3",
+                                    ckpt_dir="runs/torch_gap_stage3")
+        jax_cmd = jax_stage2.stage2_command(best, epochs, budget, tag="gap-stage3",
+                                            ckpt_dir="runs/gap_stage3")
+        assert cmd[:3] == ["python", "-m", "vub_image_denoising_tpu_torch.scripts.train_accuracy"]
+        assert knob_flags(cmd)[:-1] == knob_flags(jax_cmd)[:-1]  # all but the directory
+        train_accuracy.build_arg_parser().parse_args(cmd[3:])
+    capsys.readouterr()
+    assert stage2.main(["--log", str(log), "--dry-run"]) == 0
+    port_out = capsys.readouterr().out
+    assert jax_stage2.main(["--log", str(log), "--dry-run"]) == 0
+    jax_out = capsys.readouterr().out
+
+    def running(out):
+        return knob_flags(next(ln for ln in out.splitlines()
+                               if ln.startswith("running:")).split())[:-1]
+
+    assert running(port_out) == running(jax_out)
+
+
+def sh_runs(name):
+    """The runs of a repo ``.sh`` sweep: each ``python scripts/...`` command
+    with ``$COMMON`` expanded, split into words."""
+    with open(os.path.join(REPO, "scripts", name)) as f:
+        text = f.read().replace("\\\n", " ")
+    common = ""
+    if 'COMMON="' in text:
+        common = text.split('COMMON="', 1)[1].split('"', 1)[0]
+    return [shlex.split(line.replace("$COMMON", common)) for line in text.splitlines()
+            if line.startswith("python scripts/")]
+
+
+@pytest.mark.parametrize("name, sh, runner", [
+    ("run_diffusion_gap", "run_diffusion_gap.sh", "train_accuracy"),
+    ("run_rca_ablation", "run_rca_ablation.sh", "train_gan_accuracy"),
+    ("run_rca_balance", "run_rca_balance.sh", "train_gan_accuracy")])
+def test_grids_carry_the_sh_files_flags_run_for_run(name, sh, runner, capsys):
+    module = importlib.import_module(f"vub_image_denoising_tpu_torch.scripts.{name}")
+    runs = sh_runs(sh)
+    grid = module.grid()
+    assert len(grid) == len(runs) > 0
+    parser = importlib.import_module(
+        f"vub_image_denoising_tpu_torch.scripts.{runner}").build_arg_parser()
+    for (run_name, argv), words in zip(grid, runs):
+        i = words.index("--ckpt-dir")
+        jax_dir = words[i + 1]
+        assert argv[:-2] == words[2:i] + words[i + 2:] and argv[-2] == "--ckpt-dir"
+        assert argv[-1] == "runs/torch_" + jax_dir[len("runs/"):]
+        parser.parse_args(argv)
+    assert module.main(["--dry-run", "--only", grid[-1][0], "--epochs", "1"]) == 0
+    printed = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("+ ")]
+    assert printed == ["+ python -m vub_image_denoising_tpu_torch.scripts." + runner + " "
+                       + " ".join(grid[-1][1] + ["--epochs", "1"])]
+
+
+def test_grid_runs_each_config_and_reports_failures(monkeypatch):
+    from vub_image_denoising_tpu_torch.scripts import run_diffusion_gap, sweep
+
+    ran = []
+    monkeypatch.setattr(sweep, "run_command", lambda module, argv: ran.append(argv) or (
+        3 if "gap-mse" in argv else 0))
+    assert run_diffusion_gap.main(["--only", "gap-base", "--only", "gap-ssim"]) == 0
+    assert [a[a.index("--tag") + 1] for a in ran] == ["gap-base", "gap-ssim"]
+    assert run_diffusion_gap.main([]) == 1 and len(ran) == 2 + 8
+    with pytest.raises(SystemExit):
+        run_diffusion_gap.main(["--only", "gap-nope"])
+
+
+def test_regen_artifacts_check_reads_the_markers(tmp_path, capsys, monkeypatch):
+    from vub_image_denoising_tpu_torch.scripts import regen_artifacts as ra
+
+    names = [e[0] for e in ra.MANIFEST]
+    assert len(set(names)) == len(names)
+    for name, artifact, marker, cmd, minutes, record in ra.MANIFEST:
+        assert artifact.startswith("runs/torch_") and marker.startswith("runs/torch_")
+        words = shlex.split(cmd)
+        module = importlib.import_module(words[2])
+        assert hasattr(module, "main") and words[:2] == ["python", "-m"], name
+        assert "TPU" not in minutes and ("H100" in minutes or "not" in minutes)
+    # a finished run (its marker), a cut one (its directory and a mid_ file only)
+    (tmp_path / "runs/torch_accuracy_ckpt_s25").mkdir(parents=True)
+    (tmp_path / "runs/torch_accuracy_ckpt_s25/rdunet_denoising.pth").write_bytes(b"x")
+    (tmp_path / "runs/torch_gap_stage2").mkdir(parents=True)
+    (tmp_path / "runs/torch_gap_stage2/mid_checkpoint.pth").write_bytes(b"x")
+    assert ra.main(["--check", "--root", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    summary = json.loads(out.splitlines()[-1])
+    assert summary == {"live": 1, "missing": [n for n in names if n != "s25"]}
+    assert any(ln.startswith("live") and " s25 " in ln for ln in out.splitlines())
+    ran = []
+    monkeypatch.setattr(ra.subprocess, "Popen", lambda argv, cwd: ran.append(argv) or type(
+        "P", (), {"wait": lambda self: 0, "poll": lambda self: 0})())
+    ra.main(["--regen", "s25", "gan_search", "--root", str(tmp_path)])
+    assert [a[2] for a in ran] == ["vub_image_denoising_tpu_torch.scripts.run_gan_search"]
+    ra.main(["--regen", "s25", "--force", "--root", str(tmp_path)])
+    assert ran[-1][2:4] == ["vub_image_denoising_tpu_torch.scripts.train_accuracy", "--epochs"]
+    with pytest.raises(SystemExit) as e:
+        ra.main(["--regen", "definitely-not-an-entry", "--root", str(tmp_path)])
+    assert e.value.code not in (0, None)
+
+
+def test_job_dispatches_its_three_tasks(monkeypatch, capsys):
+    from vub_image_denoising_tpu_torch.scripts import job
+    from vub_image_denoising_tpu_torch.search import hyperparams
+    from vub_image_denoising_tpu_torch.train import diffusion, presets
+
+    calls = []
+    monkeypatch.setattr(diffusion, "main", lambda argv: calls.append(("diffusion", argv)))
+    monkeypatch.setattr(presets, "rdunet_supervised_main",
+                        lambda folder: calls.append(("supervised", folder)))
+    monkeypatch.setattr(diffusion, "load_data_for", lambda args, device, mesh: (
+        calls.append(("data", args.dataset_choice, str(device), mesh.size("data"))) or ("tl", "vl")))
+    monkeypatch.setattr(hyperparams, "run_search", lambda tl, vl, **kw: calls.append(
+        ("search", tl, vl, kw["n_trials"], kw["num_epochs"], str(kw["trainer_kwargs"]["device"]))))
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert job.main(["diffusion", "--num_epochs", "1"]) == 0
+    assert job.main([]) == 0
+    assert job.main(["supervised", "images"]) == 0
+    assert job.main(["search", "--dataset_choice", "DIV2K", "--device", "cpu"]) == 0
+    assert calls == [("diffusion", ["--num_epochs", "1"]), ("diffusion", []),
+                     ("supervised", "images"), ("data", "DIV2K", "cpu", 1),
+                     ("search", "tl", "vl", 50, 5, "cpu")]
+    assert job.main(["train"]) == 2
+    assert "unknown task: train" in capsys.readouterr().err

@@ -25,10 +25,10 @@ def _gaussian_window(size=11, sigma=1.5, device=None):
     return g / torch.sum(g)
 
 
-def ssim(pred, target, data_range=1.0, win_size=11, sigma=1.5, k1=0.01, k2=0.03):
-    """Single-scale SSIM of two (N, C, H, W) batches as a scalar: a separable
-    gaussian blur per channel with VALID padding, averaged over all pixels,
-    channels and images (pytorch_msssim's ``size_average=True``)."""
+def ssim_map(pred, target, data_range=1.0, win_size=11, sigma=1.5, k1=0.01, k2=0.03):
+    """The SSIM map of two (N, C, H, W) batches: a separable gaussian blur per
+    channel with VALID padding, one value per window, (N, C, H - win_size + 1,
+    W - win_size + 1)."""
     pred = pred.float()
     target = target.float()
     c = pred.shape[1]
@@ -52,8 +52,14 @@ def ssim(pred, target, data_range=1.0, win_size=11, sigma=1.5, k1=0.01, k2=0.03)
     sigma_xy = blur(pred * target) - mu_xy
 
     cs = (2 * sigma_xy + c2) / (sigma_xx + sigma_yy + c2)
-    ssim_map = ((2 * mu_xy + c1) / (mu_xx + mu_yy + c1)) * cs
-    return torch.mean(ssim_map)
+    return ((2 * mu_xy + c1) / (mu_xx + mu_yy + c1)) * cs
+
+
+def ssim(pred, target, data_range=1.0, win_size=11, sigma=1.5, k1=0.01, k2=0.03):
+    """Single-scale SSIM of two (N, C, H, W) batches as a scalar: ``ssim_map``
+    averaged over all windows, channels and images (pytorch_msssim's
+    ``size_average=True``)."""
+    return torch.mean(ssim_map(pred, target, data_range, win_size, sigma, k1, k2))
 
 
 def combined_loss(pred, target, mse_weight=0.0, charbonnier_weight=1.0, ssim_weight=0.0,

@@ -1,14 +1,16 @@
-// patchio — native host-side data-loader core: batched uint8 patch gather.
+// patchio — native host-side data-loader core of the PyTorch port: batched
+// uint8 patch gather.
 //
-// The TPU-native counterpart of the reference's torch DataLoader worker pool
-// (dataset_creation/data_loader.py:76-77 relies on torch's C++ loader machinery):
-// the Python loader keeps decoded images in a byte-budgeted LRU cache
-// (data/datasets.py::DecodeCache) and this kernel copies a whole batch of
-// patches out of those cached frames in one call — one C pass instead of a
-// per-sample Python __getitem__ / np.stack loop, threaded across patches when
-// the host has cores to spare.
+// The port's PatchLoader (data/loader.py) keeps decoded images in a
+// byte-budgeted LRU cache (data/datasets.py::DecodeCache) and this function
+// copies a whole batch of patches out of those cached frames in one call — one
+// C pass instead of a per-sample Python __getitem__ / np.stack loop, threaded
+// across patches when the host has cores to spare.  The reference's torch
+// DataLoader worker pool (dataset_creation/data_loader.py:76-77) is what it
+// stands in for.
 //
-// C ABI only (consumed via ctypes from vub_image_denoising_tpu/native/__init__.py).
+// C ABI only (built by g++ and consumed via ctypes from
+// vub_image_denoising_tpu_torch/native/__init__.py).
 
 #include <cstdint>
 #include <cstring>

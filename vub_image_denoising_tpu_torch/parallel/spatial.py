@@ -26,16 +26,23 @@ are cropped off again.
   the rank that owns them, which adds it into its edge rows.  With the
   bands equal, the mean of the ranks' gradients of their band losses is the
   gradient of the whole image's loss.
+- ``RDUNetT``'s timestep plane is constant over an image, so its band is
+  the band's own plane.  The diffusion loss's SSIM term is no per-pixel
+  mean: ``band_combined_loss`` gives each rank its share of the whole
+  image's loss from the windows centred in its band.
 """
 
 import torch
 import torch.distributed as dist
 
-from ..models.rdunet import RDUNet
+from ..diffusion.losses import combined_loss, ssim_map
+from ..models.fused_apply import t_plane
+from ..models.rdunet import RDUNet, RDUNetT
 from .mesh import BLOCK_HALO, group_size, recv, send
 
 IO_HALO = 2  # the input and output blocks: two 3x3 convs
 UP_HALO = 1  # the up block's 3x3 conv
+SSIM_WIN = 11  # diffusion/losses.py ssim's window
 
 
 def _neighbours(group):
@@ -154,9 +161,38 @@ def band_trunk(core, x, group=None):
     return with_halo(core.output_block, out_6, IO_HALO, group)
 
 
-def band_forward(model: RDUNet, x, group=None):
-    """``RDUNet``'s forward on this rank's band ``x`` (``shard_spatial``):
-    the band of the whole image's output."""
+def band_forward(model, x, group=None, t=None):
+    """``RDUNet``'s forward, or ``RDUNetT``'s at the normalized timestep ``t``
+    (a scalar or an (N,) vector), on this rank's band ``x``
+    (``shard_spatial``): the band of the whole image's output."""
+    if isinstance(model, RDUNetT):
+        return band_trunk(model, torch.cat([x, t_plane(t, x)], 1), group) + x
     if not isinstance(model, RDUNet):
-        raise TypeError(f"the band forward takes an RDUNet, got {type(model).__name__}")
+        raise TypeError(f"the band forward takes an RDUNet or an RDUNetT, got "
+                        f"{type(model).__name__}")
     return band_trunk(model, x, group) + x
+
+
+def band_combined_loss(pred, target, group=None, mse_weight=0.0, charbonnier_weight=1.0,
+                       ssim_weight=0.0, epsilon=1e-3):
+    """This rank's share of ``combined_loss`` of the whole image, from its
+    bands of ``pred`` and ``target``: the mean of the shares over the ranks
+    of ``group`` is the whole image's loss, and of their gradients its
+    gradient.  Charbonnier and MSE are per-pixel means, so an equal band's
+    mean is its share.  SSIM averages a map of VALID windows: each band
+    takes ``SSIM_WIN // 2`` rows of both images from each neighbour
+    (``halo_exchange``, so the gradient of ``pred``'s halo goes back to its
+    owner) and sums the map of the windows centred in its rows (the outer
+    bands hold fewer), scaled to the whole map's mean.  With one rank,
+    ``combined_loss``."""
+    n = group_size(group)
+    if n == 1 or not ssim_weight:
+        return combined_loss(pred, target, mse_weight, charbonnier_weight, ssim_weight, epsilon)
+    halo = SSIM_WIN // 2
+    b, c, h, w = pred.shape
+    windows = b * c * (h * n - 2 * halo) * (w - 2 * halo)
+    band_map = ssim_map(halo_exchange(pred.float(), halo, halo, group),
+                        halo_exchange(target.float(), halo, halo, group), data_range=1.0,
+                        win_size=SSIM_WIN)
+    return (combined_loss(pred, target, mse_weight, charbonnier_weight, 0.0, epsilon)
+            + ssim_weight * (1.0 - n * band_map.sum() / windows))

@@ -30,11 +30,15 @@ nccl with a card per rank, gloo with ``--device cpu``) each rank trains on
 its rows of every global batch;
 ``--param-sharding`` is ``replicated``, ``fsdp`` (params and Adam moments
 sharded, ``parallel/fsdp.py``) or ``tp`` (channels split,
-``parallel/tp.py``).  Rank 0 writes the checkpoints.
+``parallel/tp.py``).  Rank 0 writes the checkpoints.  ``DiffusionTrainer(
+batch_sharding="spatial")`` splits every image's rows over the ranks
+instead (``parallel/spatial.py``), as JAX's ``shard_spatial`` placement of
+the same step; the CLI has no flag for it, as JAX's has none.
 """
 
 import argparse
 import dataclasses
+import functools
 import math
 import os
 import time
@@ -54,8 +58,8 @@ from ..utils.preempt import GracefulShutdown
 from ..utils.tb import add_image_grid
 from .schedules import make_optimizer
 from .state import ShardedTrainerMixin, TrainState
-from .supervised import (ENGINES, accumulate_and_apply, data_parallel_accumulation, nhwc_unit,
-                         put_batch)
+from .supervised import (BATCH_SHARDINGS, ENGINES, accumulate_and_apply,
+                         data_parallel_accumulation, nhwc_unit, put_batch)
 
 SAMPLING = ("improved", "direct")
 
@@ -81,7 +85,8 @@ def sample_timesteps(generator, n: int, timesteps: int, distribution: str = "uni
 def make_diffusion_train_step(unet_apply, diffusion: InterpolationDiffusion,
                               accumulation_steps: int = 1, distribution: str = "uniform",
                               loss_weights=(0.0, 1.0, 0.0), compute_dtype=torch.float32,
-                              kernel_weights_fn=None, data_shards: int = 1, data_index: int = 0):
+                              kernel_weights_fn=None, data_shards: int = 1, data_index: int = 0,
+                              loss_fn=combined_loss):
     """The accumulate -> clip -> step function of the diffusion trainer.
 
     ``unet_apply(params, x, t) -> prediction``, with ``t`` an (N,) vector of
@@ -97,7 +102,9 @@ def make_diffusion_train_step(unet_apply, diffusion: InterpolationDiffusion,
     global batch (a contiguous block, ``parallel.mesh.local_batch_rows``):
     every rank draws the timesteps of the global batch, micro-batch by
     micro-batch as one rank would, and keeps its rows' (JAX draws one key
-    for the global batch)."""
+    for the global batch).  ``loss_fn(pred, target, mse_weight,
+    charbonnier_weight, ssim_weight)`` is ``combined_loss`` unless given
+    (the band layout's ``parallel.spatial.band_combined_loss``)."""
     mse_w, charb_w, ssim_w = loss_weights
     T = diffusion.timesteps
 
@@ -116,8 +123,8 @@ def make_diffusion_train_step(unet_apply, diffusion: InterpolationDiffusion,
             interpolated = (alpha * noisy[sl].to(compute_dtype)
                             + (1 - alpha) * clean[sl].to(compute_dtype))
             pred = unet_apply(state.params, interpolated, (t / T).to(compute_dtype), **kw)
-            return combined_loss(pred.float(), clean[sl].float(), mse_weight=mse_w,
-                                 charbonnier_weight=charb_w, ssim_weight=ssim_w)
+            return loss_fn(pred.float(), clean[sl].float(), mse_weight=mse_w,
+                           charbonnier_weight=charb_w, ssim_weight=ssim_w)
 
         return accumulate_and_apply(state, n, acc, micro_loss)
 
@@ -140,7 +147,16 @@ class DiffusionTrainer(ShardedTrainerMixin):
     parameters (``param_sharding="tp"``: its shards).  Over several ranks,
     as ``SupervisedTrainer`` (``param_sharding`` "replicated", "fsdp" or
     "tp"; ``train_step`` takes this rank's rows and returns the global
-    loss)."""
+    loss).
+
+    ``batch_sharding="spatial"``, as ``SupervisedTrainer``'s: every rank
+    takes the whole batch and keeps its band of rows (``put``), the step
+    draws the whole batch's timesteps on every rank alike, runs the band
+    forward (``parallel.spatial.band_forward``: 14 DenoisingBlocks on the
+    band plus its halos) and takes the rank's share of the whole image's
+    loss (``band_combined_loss``: the SSIM term with a halo of its own);
+    ``sample`` runs the sampler on the bands and gathers them.  Engine
+    ``"flax"`` and ``param_sharding="replicated"`` only."""
 
     base_filters: int = 32
     timesteps: int = 20
@@ -162,6 +178,7 @@ class DiffusionTrainer(ShardedTrainerMixin):
     device: Any = None
     param_sharding: str = "replicated"
     mesh: Any = None  # parallel.mesh.Mesh; default: every rank on "data" ("tp": on "model")
+    batch_sharding: str = "batch"  # "spatial": each rank takes a band of rows of every image
 
     def init(self, steps_per_epoch: int, seed: int = 0) -> TrainState:
         """Builds the model from ``seed`` on the trainer's device, the
@@ -172,6 +189,13 @@ class DiffusionTrainer(ShardedTrainerMixin):
             raise ValueError(f"unknown engine {self.engine!r} (want one of {ENGINES})")
         if self.sampling not in SAMPLING:
             raise ValueError(f"unknown sampling {self.sampling!r} (want one of {SAMPLING})")
+        if self.batch_sharding not in BATCH_SHARDINGS:
+            raise ValueError(f"unknown batch_sharding {self.batch_sharding!r} "
+                             f"(want one of {BATCH_SHARDINGS})")
+        spatial = self.batch_sharding == "spatial"
+        if spatial and (self.param_sharding != "replicated" or self.engine != "flax"):
+            raise ValueError("batch_sharding='spatial' takes param_sharding='replicated' and "
+                             "engine='flax' (the model's modules)")
         self.device = resolve_device(self.device)
         self.seed = seed
         self.steps_per_epoch = max(1, steps_per_epoch)
@@ -187,10 +211,16 @@ class DiffusionTrainer(ShardedTrainerMixin):
                                  scheduler_choice=self.scheduler_choice,
                                  steps_per_epoch=self.steps_per_epoch, clip_norm=self.clip_norm)
         state = self._make_state(self.unet, self.tx)
-        kernel_weights_fn = None
+        kernel_weights_fn, loss_fn = None, combined_loss
         if self.tp is not None:
             tp = self.tp
             self.unet_apply = lambda p, x, t: tp.apply(p, x, t)  # noqa: E731
+        elif spatial:
+            from ..parallel.spatial import band_combined_loss, band_forward
+
+            group = self.mesh.group("data")
+            self.unet_apply = lambda p, x, t: band_forward(self.unet, x, group, t)  # noqa: E731
+            loss_fn = functools.partial(band_combined_loss, group=group)
         elif self.engine == "flax":
             self.unet_apply = lambda p, x, t: self.unet(x, t)  # noqa: E731 — p are its parameters
         else:
@@ -206,10 +236,18 @@ class DiffusionTrainer(ShardedTrainerMixin):
             self.unet_apply, self.diffusion, self.accumulation_steps,
             distribution=self.distribution_choice, loss_weights=tuple(self.loss_weights),
             compute_dtype=self.compute_dtype, kernel_weights_fn=kernel_weights_fn,
-            data_shards=self.data_shards(), data_index=self.mesh.index("data"))
+            # every rank holds every image of a band batch
+            data_shards=1 if spatial else self.data_shards(),
+            data_index=0 if spatial else self.mesh.index("data"), loss_fn=loss_fn)
         return state
 
     def put(self, batch):
+        """A batch on the trainer's device, channels_last on the card (under
+        ``batch_sharding="spatial"`` this rank's band of rows)."""
+        if self.batch_sharding == "spatial":
+            from ..parallel.mesh import shard_spatial
+
+            batch = shard_spatial(batch, self.mesh)
         return put_batch(batch, self.device)
 
     def train_step(self, state, noisy, clean, generator=None):
@@ -237,14 +275,20 @@ class DiffusionTrainer(ShardedTrainerMixin):
     def sample(self, state, noisy):
         """The validation sampler (``sampling``) on a batch of noisy images
         in [-1, 1], in ``compute_dtype``, without a graph (JAX's
-        ``_jit_sample``)."""
+        ``_jit_sample``); under ``batch_sharding="spatial"`` on this rank's
+        band, the bands gathered into the whole images."""
         sample = (self.diffusion.direct_sampling if self.sampling == "direct"
                   else self.diffusion.improved_sampling)
         with torch.no_grad():
             kw = {} if self.kernel_weights_fn is None else {
                 "kernel_weights": self.kernel_weights_fn(state.params)}
-            return sample(lambda x, t: self.unet_apply(state.params, x, t, **kw),
-                          self.put(noisy).to(self.compute_dtype))
+            y = sample(lambda x, t: self.unet_apply(state.params, x, t, **kw),
+                       self.put(noisy).to(self.compute_dtype))
+        if self.batch_sharding == "spatial":
+            from ..parallel.mesh import all_gather
+
+            y = all_gather(y, 2, self.mesh.group("data"))
+        return y
 
     def validate(self, state, val_loader, epoch: int = 0):
         """The validation sampler on the first (noisy, clean) batch of
@@ -255,10 +299,15 @@ class DiffusionTrainer(ShardedTrainerMixin):
             noisy, clean = next(iter(val_loader))
         except StopIteration:
             return math.nan, None
-        noisy, clean = self.put(noisy), self.put(clean)
         denoised = self.sample(state, noisy)
+        if self.batch_sharding == "spatial":  # every rank holds the whole images
+            noisy, clean = put_batch(noisy, self.device), put_batch(clean, self.device)
+            mean = float
+        else:
+            noisy, clean = self.put(noisy), self.put(clean)
+            mean = self.global_mean
         with torch.no_grad():
-            vloss = float(self.global_mean(combined_loss(denoised.float(), clean.float())))
+            vloss = float(mean(combined_loss(denoised.float(), clean.float())))
         if self.writer is not None:
             self.writer.add_scalar("Loss/validation", vloss, epoch + 1)
             for tag, imgs in ((f"Epoch_{epoch + 1}/Clean Images", clean),
