@@ -11,7 +11,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    (``fused_block_packed_tc.cu``, the same body as kernel 1's) and on the
    CUDA cores, and the wide form of both above width 256
    (``fused_block_wide_tc.cu``); prints each nvcc time and each kernel's
-   ptxas registers and spills, by library.
+   ptxas registers and spills, by library.  Meanwhile one thread makes the
+   synthetic images of steps 23, 26 and 27 and another runs step 9's plain
+   sampler on the CPU.
 3. Holds kernel 1 against its plain PyTorch version on the card at every
    block shape of an RDUNet-32 forward on 8 x 256^2 images, at the four
    micro-batch-2 shapes of a train step, on a ragged shape and on a constant
@@ -82,8 +84,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    per batch, a "pallas" f32 epoch fed by each (against phase 10's step)
    and the card's idle share over such an epoch.
 12. Evaluates on SIDD through the command line: writes a synthetic
-   validation pair in the SIDD files' layout and keys ((40, 32, 256, 256,
-   3) uint8 blocks, smooth fields plus noise) and a (2, 8, 256, 256, 3)
+   validation pair in the SIDD files' layout and keys ((20, 32, 256, 256,
+   3) uint8 blocks, half the real file's 40 images; smooth fields plus
+   noise) and a (2, 8, 256, 256, 3)
    benchmark file, then runs ``sidd_cli validate`` on a random-weight
    RDUNetT-32 with the CLI's defaults (10% of the blocks, batch 8, seed 0,
    T = 20) in f32 (``--engine auto``) and in bf16, and ``sidd_cli
@@ -212,6 +215,16 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    ``gap-ssim`` configuration through ``run_diffusion_gap --only gap-ssim``,
    cut to 2 epochs of 128 images and 8 held-out ones: exit 0, a finite
    PSNR, 56 launches a step and 280 per sampler call.
+27. The flagship protocol: ``train_accuracy`` with the flags of
+   ``regen_artifacts``' ``flagship`` entry (RDUNet(3, 128), batch 8 of
+   256^2, acc 4, bf16, engine "flax", ``--remat false --device-data``), cut
+   in data and epochs only (32 train and 8 held-out images, 3 epochs of 4
+   steps): finite losses that fall; 56 kernel-1 launches a step, 24 of them
+   on the wide form (c = 512, 1024), and 14 an evaluation (6 wide), all on
+   the tensor cores; the run as 2 epochs + 1 resumed from its mid_
+   checkpoint equals the straight run's final params (STEP_RTOL /
+   STEP_ATOL; cuDNN deterministic); then the bf16 step timed (the first
+   steps excluded) with its peak memory.
 
 Prints one JSON line of kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero, without that line, on any
@@ -531,17 +544,25 @@ def drive(base, images):
     return results, png, json.loads(body), latency_ms
 
 
-def serve_main_path(torch, ck, arch="rdunet"):
+def served_images():
+    """The 8 raw 256^2 images every served path is driven with."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, 256, (IMAGE_SIZE, IMAGE_SIZE, 3), np.uint8) for _ in range(8)]
+
+
+def serve_main_path(torch, ck, arch="rdunet", sampler_ref=None):
     """Serves ``ck`` in bf16 and f32 and checks it (module docstring, steps 5
-    and 9).  Returns the kernel-1 launches of the run, all and tensor-core,
+    and 9; for ``arch="diffusion"`` ``sampler_ref`` is ``reference_sampler``'s
+    output).  Returns the kernel-1 launches of the run, all and tensor-core,
     and the client latencies, per dtype."""
     import numpy as np
 
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block
 
     per_batch = 14 * (TIMESTEPS if arch == "diffusion" else 1)
-    rng = np.random.RandomState(0)
-    images = [rng.randint(0, 256, (IMAGE_SIZE, IMAGE_SIZE, 3), np.uint8) for _ in range(8)]
+    images = served_images()
     runs = {bf16: start_server(ck, bf16, arch) for bf16 in (True, False)}
     try:
         for _, service, _, _ in runs.values():
@@ -596,8 +617,7 @@ def serve_main_path(torch, ck, arch="rdunet"):
             if not np.isfinite(y).all() or d_served > levels[name]:
                 fail(f"served {name} bytes do not match the denoiser's output")
         if arch == "diffusion":
-            ref, what, tol = reference_sampler(torch, ck, x[:1]), "plain sampler", \
-                SERVED_SAMPLER_F32_TOL
+            ref, what, tol = sampler_ref, "plain sampler", SERVED_SAMPLER_F32_TOL
         else:
             ref, what, tol = reference_forward(torch, ck, x[:1]), "plain forward", SERVED_F32_TOL
         err32 = float(np.abs(y32[:1] - ref).max())
@@ -631,20 +651,30 @@ def reference_forward(torch, ck, x):
     return y.permute(0, 2, 3, 1).numpy()
 
 
-def reference_sampler(torch, ck, x):
-    """The diffusion checkpoint's T-step sampler through the plain version,
-    f32, on the CPU."""
-    from vub_image_denoising_tpu_torch.diffusion import InterpolationDiffusion
+def seeded_rdunet_t(torch):
+    """The random-weight RDUNetT-32 that step 9 serves."""
     from vub_image_denoising_tpu_torch.models import RDUNetT
-    from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
 
-    model, _ = load_pth(ck, RDUNetT(BASE_FILTERS), prefix="unet.")
+    return RDUNetT(BASE_FILTERS, generator=torch.Generator().manual_seed(0))
+
+
+def reference_sampler(torch, threads):
+    """Step 9's check: the served RDUNetT's T-step sampler through the plain
+    version, f32, on the CPU, on the first served image, in ``threads``
+    threads (it runs while nvcc builds)."""
+    import numpy as np
+
+    from vub_image_denoising_tpu_torch.diffusion import InterpolationDiffusion
+
+    torch.set_num_threads(threads)
+    x = np.stack(served_images()[:1]).astype(np.float32) / 255.0 * 2.0 - 1.0
+    model = seeded_rdunet_t(torch)
     t0 = time.monotonic()
     with torch.inference_mode():
         y = InterpolationDiffusion(TIMESTEPS).improved_sampling(
             model.eval(), torch.from_numpy(x).permute(0, 3, 1, 2))
-    print(f"plain sampler on the CPU, {x.shape[0]} image(s), T = {TIMESTEPS}: "
-          f"{time.monotonic() - t0:.1f} s", flush=True)
+    print(f"plain sampler on the CPU, {x.shape[0]} image(s), T = {TIMESTEPS}, {threads} "
+          f"threads: {time.monotonic() - t0:.1f} s", flush=True)
     return y.permute(0, 2, 3, 1).numpy()
 
 
@@ -1327,7 +1357,7 @@ def time_folder_loaders(torch, device, root, card, synthetic_step_ms):
 
 # SIDD evaluation (phase 12): the validation pair in the real files' layout
 # and keys, (images, blocks, 256, 256, 3) uint8, and a small benchmark file.
-SIDD_VAL_SHAPE = (40, 32, IMAGE_SIZE, IMAGE_SIZE, 3)
+SIDD_VAL_SHAPE = (20, 32, IMAGE_SIZE, IMAGE_SIZE, 3)  # the real file's 40 images cut to 20
 SIDD_BENCH_SHAPE = (2, 8, IMAGE_SIZE, IMAGE_SIZE, 3)
 SIDD_CSV_HEADER = ["Method", "MACs (G)", "Inference Time (ms)", "PSNR", "SSIM"]
 EVAL_PSNR_TOL, EVAL_SSIM_TOL = 1e-4, 1e-5  # card metrics vs the CPU's, dB and SSIM units
@@ -3337,6 +3367,16 @@ RUN_SEARCH_STEPS = 64 // 16  # the runner's --n-train over its --batch-size
 # held-out images (one sampler call an evaluation)
 GAP_CONFIG, GAP_EPOCHS, GAP_TRAIN, GAP_VAL = "gap-ssim", 2, 128, 8
 GAP_CUT_ARGS = ["--epochs", str(GAP_EPOCHS), "--n-train", str(GAP_TRAIN), "--n-val", str(GAP_VAL)]
+# Phase 27: the flagship entry of the manifest, cut in data and epochs only:
+# FLAGSHIP_TRAIN + FLAGSHIP_VAL images (FLAGSHIP_TRAIN // 8 steps an epoch),
+# FLAGSHIP_EPOCHS epochs, a mid_ checkpoint after FLAGSHIP_SPLIT of them;
+# then FLAGSHIP_TIMED steps timed after FLAGSHIP_WARMUP.
+FLAGSHIP_TRAIN, FLAGSHIP_VAL, FLAGSHIP_EPOCHS, FLAGSHIP_SPLIT = 32, 8, 3, 2
+FLAGSHIP_CUT_ARGS = ["--n-train", str(FLAGSHIP_TRAIN), "--n-val", str(FLAGSHIP_VAL),
+                     "--eval-every", str(FLAGSHIP_SPLIT)]
+FLAGSHIP_WARMUP, FLAGSHIP_TIMED = 2, 6
+# RDUNet(128)'s blocks per forward on the wide form: 4 at c = 512, 2 at 1024
+FLAGSHIP_WIDE = 6
 
 
 class _Tee(io.TextIOBase):
@@ -3353,13 +3393,28 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def run_protocol(torch, ta, argv, per_eval, steps_per_epoch=PROTOCOL_TRAIN // PROTOCOL_BATCH):
+def make_synthetic(cache):
+    """The synthetic images of the protocol phases (23, 26's gap run, 27)
+    into ``cache``, where ``train_accuracy`` finds them by recipe; returns
+    the seconds."""
+    from vub_image_denoising_tpu_torch.scripts import train_accuracy as ta
+
+    t0 = time.perf_counter()
+    for n_train, n_val in ((PROTOCOL_TRAIN, PROTOCOL_VAL), (GAP_TRAIN, GAP_VAL),
+                           (FLAGSHIP_TRAIN, FLAGSHIP_VAL)):
+        ta.synth_train_val(n_train, n_val, IMAGE_SIZE, cache_dir=cache)
+    return time.perf_counter() - t0
+
+
+def run_protocol(torch, ta, argv, per_eval, steps_per_epoch=PROTOCOL_TRAIN // PROTOCOL_BATCH,
+                 wide=0):
     """``ta.main(argv)`` on the card with kernel 1's launches counted: those
     of each held-out evaluation apart from the training's.  Fails unless
     every training step (``steps_per_epoch`` an epoch) launched 14 *
-    ACCUMULATION blocks, every evaluation ``per_eval``, all on the tensor
-    cores, and the losses are finite.  Returns the row, the losses, the
-    launches and the seconds."""
+    ACCUMULATION blocks, ``wide`` * ACCUMULATION of them on the wide form,
+    every evaluation ``per_eval`` (``wide`` * ``per_eval`` / 14 wide), all
+    on the tensor cores, and the losses are finite.  Returns the row, the
+    losses, the launches and the seconds."""
     import contextlib
 
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
@@ -3391,14 +3446,17 @@ def run_protocol(torch, ta, argv, per_eval, steps_per_epoch=PROTOCOL_TRAIN // PR
     train = [t - sum(e[i] for e in evals) for i, t in enumerate(total)]
     rec = {"row": row, "losses": losses, "sec": sec, "steps": steps,
            "launches": {"all": total[0], "tc": total[1], "wide": total[2]},
-           "per_step": train[0] / steps, "per_eval": [e[0] for e in evals],
-           "sec_per_epoch": sec / epochs}
+           "per_step": train[0] / steps, "wide_per_step": train[2] / steps,
+           "per_eval": [e[0] for e in evals], "sec_per_epoch": sec / epochs}
+    wide_eval = wide * per_eval // 14
     print(f"protocol {row['metric']} ({' '.join(argv[-4:])}): {epochs} epochs, {steps} steps in "
           f"{sec:.1f} s ({rec['sec_per_epoch']:.2f} s/epoch); losses {losses}; noisy-input PSNR "
           f"{row['psnr_noisy_db']} dB, held-out {row['psnr_denoised_db']} dB; kernel-1 launches "
-          f"{rec['launches']}: {rec['per_step']:.0f} per step (want {14 * ACCUMULATION}), per "
-          f"eval {rec['per_eval']} (want {per_eval} each)", flush=True)
-    if (train[0] != steps * 14 * ACCUMULATION or any(e != [per_eval, per_eval, 0] for e in evals)
+          f"{rec['launches']}: {rec['per_step']:.0f} per step (want {14 * ACCUMULATION}), "
+          f"{rec['wide_per_step']:.0f} wide (want {wide * ACCUMULATION}), per eval "
+          f"{rec['per_eval']} (want {per_eval} each, {wide_eval} wide)", flush=True)
+    if (train[0] != steps * 14 * ACCUMULATION or train[2] != steps * wide * ACCUMULATION
+            or any(e != [per_eval, per_eval, wide_eval] for e in evals)
             or total[1] != total[0] or not all(math.isfinite(v) for v in losses)):
         fail(f"protocol run {argv}: launches {total}, evals {evals}, losses {losses}")
     return rec
@@ -3410,9 +3468,9 @@ def max_param_ratio(a, b):
                .max().item() for k, v in b.items())
 
 
-def protocol_main_path(torch, device, tmp):
-    """Phase 23 (module docstring): returns the records and the two
-    checkpoints' paths for phase 25."""
+def protocol_main_path(torch, device, tmp, cache):
+    """Phase 23 (module docstring), its images from ``cache``: returns the
+    records and the two checkpoints' paths for phase 25."""
     import numpy as np
 
     from vub_image_denoising_tpu_torch.models import RDUNet
@@ -3421,7 +3479,7 @@ def protocol_main_path(torch, device, tmp):
     from vub_image_denoising_tpu_torch.utils.checkpoint import load_pth
 
     phase_t0 = time.perf_counter()
-    common = ["--cache-dir", os.path.join(tmp, "cache"), "--out", os.path.join(tmp, "log.jsonl"),
+    common = ["--cache-dir", cache, "--out", os.path.join(tmp, "log.jsonl"),
               *PROTOCOL_ARGS]
     ck, ck_resumed, ck_diff = (os.path.join(tmp, d) for d in ("ck", "ck_resumed", "ck_diff"))
     out = {}
@@ -3457,7 +3515,7 @@ def protocol_main_path(torch, device, tmp):
 
     # the written checkpoint scored in f32 on the card and on the CPU
     _, val = ta.synth_train_val(PROTOCOL_TRAIN, PROTOCOL_VAL, IMAGE_SIZE,
-                                cache_dir=os.path.join(tmp, "cache"))
+                                cache_dir=cache)
     val = val[:PROTOCOL_CPU_IMAGES]
     noisy = ta.heldout_noisy(val, np.full(len(val), 25.0, np.float32))
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
@@ -3600,7 +3658,7 @@ def runner_and_switches_main_path(torch, device, tmp, paths):
     return out
 
 
-def runner_scripts_main_path(torch):
+def runner_scripts_main_path(torch, cache):
     """Phase 26 (module docstring): each script's exit code, seconds and
     kernel-1 launches by variant (all on the tensor cores, as many as the
     samplers and steps it ran); measure_sidd_eval's finite PSNR/SSIM per
@@ -3677,16 +3735,17 @@ def runner_scripts_main_path(torch):
         fail(f"run_search: trial rows {rows}, study {out['search_script']['study']}")
     # each trial's epoch of steps at accumulation 4, and the T-step samplers
     check_launches("search_script", 14 * (2 * RUN_SEARCH_STEPS * ACCUMULATION + sum(sampled)))
-    out.update(tooling_main_path(torch))
+    out.update(tooling_main_path(torch, cache))
     out["phase_sec"] = time.perf_counter() - phase_t0
     return out
 
 
-def tooling_main_path(torch):
+def tooling_main_path(torch, cache):
     """Phase 26's protocol tooling (module docstring): the dry runs' commands,
     the manifest's check on an empty tree, and GAP_CONFIG through
     ``run_diffusion_gap --only`` with ``train_accuracy`` run in this process
-    (``run_protocol``'s launch checks: 56 a step, 280 an evaluation)."""
+    on images from ``cache`` (``run_protocol``'s launch checks: 56 a step,
+    280 an evaluation)."""
     import contextlib
 
     from vub_image_denoising_tpu_torch.scripts import (regen_artifacts, run_diffusion_gap,
@@ -3748,7 +3807,7 @@ def tooling_main_path(torch):
         t0 = time.perf_counter()
         try:
             rc = run_diffusion_gap.main(["--only", GAP_CONFIG, *GAP_CUT_ARGS,
-                                         "--cache-dir", os.path.join(tmp, "cache"),
+                                         "--cache-dir", cache,
                                          "--out", os.path.join(tmp, "log.jsonl"),
                                          "--ckpt-dir", os.path.join(tmp, "gap")])
         finally:
@@ -3763,6 +3822,107 @@ def tooling_main_path(torch):
             or rec["row"]["loss_weights"] != "0,1,0.3"
             or not math.isfinite(rec["row"]["psnr_denoised_db"])):
         fail(f"run_diffusion_gap --only {GAP_CONFIG}: rc {rc}, row {rec and rec['row']}")
+    return out
+
+
+def flagship_main_path(torch, device, cache):
+    """Phase 27 (module docstring): the manifest's ``flagship`` command with
+    FLAGSHIP_CUT_ARGS, straight and as FLAGSHIP_SPLIT epochs + the rest
+    resumed, through ``run_protocol`` (56 launches a step, FLAGSHIP_WIDE *
+    ACCUMULATION wide; 14 an evaluation); then the bf16 step's ms and peak
+    GiB over FLAGSHIP_TIMED steps after FLAGSHIP_WARMUP.  Images from
+    ``cache``."""
+    import shlex
+
+    from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
+    from vub_image_denoising_tpu_torch.scripts import regen_artifacts
+    from vub_image_denoising_tpu_torch.scripts import train_accuracy as ta
+
+    phase_t0 = time.perf_counter()
+    # the entry's flags after "python -m <module>"; the cut's flags follow
+    # them, and argparse keeps the last of a repeated flag
+    command = shlex.split(dict((e[0], e[3]) for e in regen_artifacts.MANIFEST)["flagship"])
+    if command[2] != "vub_image_denoising_tpu_torch.scripts.train_accuracy":
+        fail(f"the manifest's flagship entry runs {command[2]}")
+    flags = command[3:] + FLAGSHIP_CUT_ARGS
+    args = ta.build_arg_parser().parse_args(flags)
+    if (args.base_filters, args.batch_size, args.remat, args.engine, args.device_data,
+            args.algo) != (128, 8, "false", "flax", True, "supervised"):
+        fail(f"the manifest's flagship entry is not the flagship protocol: {command}")
+    steps_per_epoch = FLAGSHIP_TRAIN // args.batch_size
+    out = {"command": " ".join(command), "cut": FLAGSHIP_CUT_ARGS}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = flags + ["--cache-dir", cache,
+                          "--out", os.path.join(tmp, "log.jsonl")]
+        ck, ck_resumed = os.path.join(tmp, "ck"), os.path.join(tmp, "ck_resumed")
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            out["straight"] = run_protocol(torch, ta, common + [
+                "--epochs", str(FLAGSHIP_EPOCHS), "--ckpt-every", str(FLAGSHIP_SPLIT),
+                "--ckpt-dir", ck], 14, steps_per_epoch, FLAGSHIP_WIDE)
+            out["resumed"] = run_protocol(torch, ta, common + [
+                "--epochs", str(FLAGSHIP_EPOCHS - FLAGSHIP_SPLIT), "--ckpt-dir", ck_resumed,
+                "--resume", os.path.join(ck, "mid_rdunet_denoising.pth")], 14, steps_per_epoch,
+                FLAGSHIP_WIDE)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        losses = out["straight"]["losses"]
+        if not losses[-1] < losses[0]:
+            fail(f"the cut flagship protocol did not learn: losses {losses}")
+        a = torch.load(os.path.join(ck, "rdunet_denoising.pth"), map_location="cpu",
+                       weights_only=True)["model_state_dict"]
+        b = torch.load(os.path.join(ck_resumed, "rdunet_denoising.pth"), map_location="cpu",
+                       weights_only=True)["model_state_dict"]
+        out["resume_ratio"] = max_param_ratio(b, a)
+        out["resume_max_abs_diff"] = max((a[k] - b[k]).abs().max().item() for k in a)
+        out["params"] = sum(v.numel() for v in a.values())
+        del a, b
+        print(f"flagship {FLAGSHIP_SPLIT} + resumed {FLAGSHIP_EPOCHS - FLAGSHIP_SPLIT} epochs vs "
+              f"{FLAGSHIP_EPOCHS} straight ({out['params']} params): final params max |diff| "
+              f"{out['resume_max_abs_diff']:.3e}, worst |diff| / (atol {STEP_ATOL} + rtol "
+              f"{STEP_RTOL}*|p|) = {out['resume_ratio']:.3f} (must be <= 1)", flush=True)
+        if (out["resume_ratio"] > 1
+                or out["resumed"]["row"].get("resumed_from_epoch") != FLAGSHIP_SPLIT):
+            fail("the resumed flagship run disagrees with the straight run")
+
+        # the step as the recorded run takes it (cuDNN's default algorithms),
+        # on one batch of the run's shape
+        trainer = ta.make_trainer(args, device, os.path.join(tmp, "ck_timed"))
+        state = trainer.init(steps_per_epoch)
+        gen = torch.Generator(device=device).manual_seed(27)
+        clean = torch.rand(args.batch_size, 3, args.size, args.size, generator=gen,
+                           device=device) * 2 - 1
+        noisy = clean + SIGMA * torch.randn(clean.shape, generator=gen, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(k1)
+        step_ms = []
+        for _ in range(FLAGSHIP_WARMUP + FLAGSHIP_TIMED):
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, noisy, clean)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = variant_counts(k1, (0, 0, 0))
+        timed = step_ms[FLAGSHIP_WARMUP:]
+        out["step"] = {"ms": sum(timed) / len(timed), "step_ms": step_ms,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "loss": loss.item(), "launches": launches}
+        del trainer, state
+        torch.cuda.empty_cache()
+    steps = FLAGSHIP_WARMUP + FLAGSHIP_TIMED
+    want = {"all": 14 * ACCUMULATION * steps, "tc": 14 * ACCUMULATION * steps,
+            "wide": FLAGSHIP_WIDE * ACCUMULATION * steps, "cuda_core": 0}
+    st = out["step"]
+    print(f"flagship step RDUNet(128) {args.batch_size}x{args.size}x{args.size} acc "
+          f"{ACCUMULATION} bf16 flax: {st['ms']:.2f} ms (mean of {FLAGSHIP_TIMED} after "
+          f"{FLAGSHIP_WARMUP}; each {[round(t, 2) for t in step_ms]}), peak "
+          f"{st['peak_gib']:.3f} GiB; kernel-1 launches {launches} (want {want})", flush=True)
+    if launches != want or not math.isfinite(st["loss"]):
+        fail(f"flagship step: launches {launches}, loss {st['loss']}")
+    out["launches"] = {k: out[k]["launches"] for k in ("straight", "resumed")}
+    out["launches"]["step"] = {k: launches[k] for k in ("all", "tc", "wide")}
+    out["phase_sec"] = time.perf_counter() - phase_t0
+    print(f"flagship phase: {out['phase_sec']:.1f} s", flush=True)
     return out
 
 
@@ -3826,7 +3986,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from vub_image_denoising_tpu_torch import enable_strict_precision
-        from vub_image_denoising_tpu_torch.models import RDUNet, RDUNetT
+        from vub_image_denoising_tpu_torch.models import RDUNet
         from vub_image_denoising_tpu_torch.utils.checkpoint import save_pth
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py ({e})")
@@ -3842,10 +4002,21 @@ def main():
     enable_strict_precision()
     device = torch.device("cuda")
 
-    ptxas = build_kernels()
     if args:
+        build_kernels()
         profile_main(torch, device)
         return
+    # while nvcc runs (three processes after the first seconds): the protocol
+    # phases' synthetic images on one core, step 9's CPU sampler on the rest
+    synth, threads = tempfile.TemporaryDirectory(), torch.get_num_threads()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        made = pool.submit(make_synthetic, synth.name)
+        sampler_ref = pool.submit(reference_sampler, torch, max(1, (os.cpu_count() or 8) - 4))
+        ptxas = build_kernels()
+        print(f"synthetic images of phases 23, 26, 27 made in {made.result():.1f} s, beside "
+              "the build", flush=True)
+        sampler_ref = sampler_ref.result()
+    torch.set_num_threads(threads)
     records = check_kernel(torch, device)
     packed_records = check_packed_kernel(torch, device)
 
@@ -3860,9 +4031,8 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "rdunet_t32.pth")
-        save_pth(ck, RDUNetT(BASE_FILTERS, generator=torch.Generator().manual_seed(0)).state_dict(),
-                 prefix="unet.")
-        diffusion_serve_launches = serve_main_path(torch, ck, "diffusion")
+        save_pth(ck, seeded_rdunet_t(torch).state_dict(), prefix="unet.")
+        diffusion_serve_launches = serve_main_path(torch, ck, "diffusion", sampler_ref)
         sampler = time_sampler(torch, ck)
     diffusion_train_launches, diffusion_step_ms, validation = diffusion_train_main_path(
         torch, device)
@@ -3903,16 +4073,19 @@ def main():
     multi = multi_device_main_path(torch, device)
     phase_sec[22] = multi["phase_sec"]
     with tempfile.TemporaryDirectory() as tmp:
-        protocol, trained = protocol_main_path(torch, device, tmp)
+        protocol, trained = protocol_main_path(torch, device, tmp, synth.name)
         phase_sec[23] = protocol["phase_sec"]
         gan_protocol = gan_protocol_main_path(torch, tmp)
         phase_sec[24] = gan_protocol["phase_sec"]
         runner = runner_and_switches_main_path(torch, device, tmp, trained)
         phase_sec[25] = runner["phase_sec"]
-    scripts = runner_scripts_main_path(torch)
+    scripts = runner_scripts_main_path(torch, synth.name)
     phase_sec[26] = scripts["phase_sec"]
-    print("phases 23-26: " + ", ".join(f"{k}: {phase_sec[k]:.1f} s" for k in (23, 24, 25, 26))
-          + f"; {sum(phase_sec[k] for k in (23, 24, 25, 26)):.1f} s together", flush=True)
+    flagship = flagship_main_path(torch, device, synth.name)
+    synth.cleanup()
+    phase_sec[27] = flagship["phase_sec"]
+    print("phases 23-27: " + ", ".join(f"{k}: {phase_sec[k]:.1f} s" for k in range(23, 28))
+          + f"; {sum(phase_sec[k] for k in range(23, 28)):.1f} s together", flush=True)
     remat_launches = {k: sum(r["tc"] for r in v["launches"]) for k, v in remat.items()}
     search_launches = {"run_search": sum(t["launches"]["all"] for t in search["trials"]),
                        "fixed": sum(t["launches"]["all"] for t in search["fixed"])}
@@ -4000,7 +4173,8 @@ def main():
                          + runner["launches"]["all"]
                          + scripts["sidd_script"]["launches"]["all"]
                          + scripts["search_script"]["launches"]["all"]
-                         + scripts["gap_script"]["launches"]["all"]),
+                         + scripts["gap_script"]["launches"]["all"]
+                         + sum(v["all"] for v in flagship["launches"].values())),
             **timing(records, SLICE_SHAPES, "float32"),
             "work": "the 14 blocks of one RDUNet-32 forward, batch 8, 256x256, f32 "
                     "(tensor-core variant, 3xTF32); bf16 under variants",
@@ -4030,6 +4204,7 @@ def main():
                                  "search_script": scripts["search_script"]["launches"],
                                  "gap_script": scripts["gap_script"]["launches"],
                                  "protocol": protocol["launches"],
+                                 "flagship": flagship["launches"],
                                  "runner_trained": runner["launches"],
                                  "trainable_block": trainable["fused_denoising_block"]},
             "forward_ms": fwd,
@@ -4059,6 +4234,7 @@ def main():
             "gan_protocol": gan_protocol,
             "runner_and_switches": runner,
             "runner_scripts": scripts,
+            "flagship": flagship,
             "phase_sec": phase_sec,
             "ptxas": {lib: ptxas[lib] for lib in ("fused_block", "fused_block_tc",
                                                   "fused_block_wide_tc")},

@@ -314,6 +314,39 @@ def test_regen_artifacts_check_reads_the_markers(tmp_path, capsys, monkeypatch):
     assert e.value.code not in (0, None)
 
 
+# the repo's runner scripts and the port's module for each; its searches'
+# entries lose the "_tpu" in the port's manifest
+JAX_RUNNERS = {"train_tpu_accuracy": "train_accuracy",
+               "train_tpu_gan_accuracy": "train_gan_accuracy",
+               "run_comparative_suite": "run_comparative_suite",
+               "run_search_tpu": "run_search", "run_gan_search_tpu": "run_gan_search",
+               "run_diffusion_gap_stage2": "run_diffusion_gap_stage2"}
+
+
+def test_regen_artifacts_has_every_jax_entry():
+    """Every entry of scripts/regen_artifacts.py's MANIFEST (read from its
+    AST) but the benchmark's serve_sweep has a port entry, under its name or
+    without "_tpu", that runs the port's counterpart of its script with the
+    same flags, the paths under runs/torch_*."""
+    from vub_image_denoising_tpu_torch.scripts import regen_artifacts as ra
+
+    tree = jax_source("scripts/regen_artifacts.py")
+    jax_manifest = next(ast.literal_eval(node.value) for node in tree.body
+                        if isinstance(node, ast.Assign) and node.targets[0].id == "MANIFEST")
+    port = {e[0]: shlex.split(e[3]) for e in ra.MANIFEST}
+    for name, _, _, cmd, _, _ in jax_manifest:
+        if name == "serve_sweep":
+            continue
+        words = port[name[:-len("_tpu")] if name.endswith("_tpu") else name]
+        jax_words = shlex.split(cmd)
+        script = os.path.splitext(os.path.basename(jax_words[1]))[0]
+        assert words[2] == "vub_image_denoising_tpu_torch.scripts." + JAX_RUNNERS[script], name
+        want = [w.replace("runs/", "runs/torch_").replace("_tpu", "")
+                for w in knob_flags(jax_words)]
+        assert knob_flags(words) == want, name
+    assert "run_diffusion_gap_stage2" not in " ".join(port["gap_stage2"])
+
+
 def test_job_dispatches_its_three_tasks(monkeypatch, capsys):
     from vub_image_denoising_tpu_torch.scripts import job
     from vub_image_denoising_tpu_torch.search import hyperparams

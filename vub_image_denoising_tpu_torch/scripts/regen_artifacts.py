@@ -3,7 +3,9 @@
 Counterpart of ``scripts/regen_artifacts.py``, for what the port's scripts
 write: the accuracy protocol's checkpoints (``runs/torch_accuracy_ckpt*``),
 the diffusion-gap and GAN protocol checkpoints, the searches' CSVs and
-``runs/torch_comparative``.  Each entry names the artifact, the liveness
+the comparative suite's directories.  Every entry of the repo's manifest
+but ``serve_sweep`` (a benchmark's) has one here, under its name or, for
+the searches, without the ``_tpu``.  Each entry names the artifact, the liveness
 marker that a finished run leaves, the command that writes it, its minutes
 of training where a card run measured them, and the record it backs.
 
@@ -54,7 +56,9 @@ MANIFEST = [
      "runs/torch_accuracy_ckpt_flagship/rdunet_denoising.pth",
      PKG + "train_accuracy --base-filters 128 --epochs 150 --batch-size 8 --remat false "
      "--device-data --ckpt-dir runs/torch_accuracy_ckpt_flagship",
-     NOT_RUN, "ROADMAP.md queue 1: RDUNet-128 flagship sigma = 25"),
+     f"40.7 min of training (9600 steps, 2444.3 s on an {CARD}; PERF.md §5)",
+     "PERF.md, the accuracy protocol: RDUNet-128 flagship sigma = 25, 33.19 dB at the "
+     "default lr 1e-4 (37.14 on the JAX package's record: ROADMAP.md queue 3)"),
     ("flagship_blind", "runs/torch_accuracy_ckpt_flagship_blind",
      "runs/torch_accuracy_ckpt_flagship_blind/rdunet_denoising.pth",
      PKG + "train_accuracy --base-filters 128 --epochs 150 --batch-size 8 --remat false "
@@ -65,7 +69,8 @@ MANIFEST = [
      PKG + "train_accuracy --algo diffusion --epochs 200 --batch-size 128 --n-train 2048 "
      "--lr 2e-4 --sched-steps-per-epoch 300 --device-data "
      "--ckpt-dir runs/torch_accuracy_ckpt_diffusion",
-     NOT_RUN, "ROADMAP.md queue 1: RDUNetT-32 diffusion (T = 20) at 3200 steps"),
+     f"29.0 min of training (3200 steps, 1739.1 s on an {CARD}; PERF.md §5)",
+     "PERF.md, the accuracy protocol: RDUNetT-32 diffusion (T = 20) at 3200 steps, 29.49 dB"),
     ("gan_attention", "runs/torch_accuracy_ckpt_gan_attention",
      "runs/torch_accuracy_ckpt_gan_attention/*_generator_*.pth",
      PKG + "train_gan_accuracy --algo attention --epochs 40",
@@ -75,10 +80,20 @@ MANIFEST = [
      "runs/torch_gap_ssim_biased/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
      PKG + "run_diffusion_gap", NOT_RUN,
      "the diffusion-gap grid: eight rows gap-* of runs/torch_accuracy_log.jsonl"),
+    # the composed configuration as the repo's record trained it (SSIM 0.3 and
+    # the biased t over the then-partial stage-1 grid), pinned: re-composing
+    # over the whole grid would adopt gap-lr4 too and train another artifact,
+    # which is gap_stage3
     ("gap_stage2", "runs/torch_gap_stage2",
      "runs/torch_gap_stage2/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
-     PKG + "run_diffusion_gap_stage2 --budget-s 9000", NOT_RUN,
-     "the diffusion-gap stage 2: the composed winner of gap_stage1 at 200 epochs"),
+     PKG + "train_accuracy --algo diffusion --epochs 200 " + PROTOCOL + " --lr 2e-4 "
+     "--loss-weights 0,1,0.3 --t-dist biased --tag gap-stage2 --ckpt-dir runs/torch_gap_stage2",
+     NOT_RUN, "the diffusion-gap stage 2: the pinned composed configuration at 200 epochs"),
+    ("gap_stage3", "runs/torch_gap_stage3",
+     "runs/torch_gap_stage3/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
+     PKG + "run_diffusion_gap_stage2 --tag gap-stage3 --ckpt-dir runs/torch_gap_stage3 "
+     "--budget-s 9000", NOT_RUN,
+     "the diffusion-gap stage 3: the winner re-composed over the whole gap_stage1 grid"),
     ("rca_promoted", "runs/torch_accuracy_ckpt_rca_promoted",
      "runs/torch_accuracy_ckpt_rca_promoted/checkpoint_epoch_*.pth",
      PKG + "train_gan_accuracy --algo rca --lam-feat 0.05 --lam-content 100 "
@@ -98,6 +113,17 @@ MANIFEST = [
      "diffusion_RDUNet_model_checkpointed_epoch_200.pth --epoch-label 200 "
      "--save-dir runs/torch_comparative",
      NOT_RUN, "the comparative suite on the blind and diffusion checkpoints (needs both)"),
+    ("comparative_flagship", "runs/torch_comparative_flagship",
+     "runs/torch_comparative_flagship/summary.json",
+     PKG + "run_comparative_suite "
+     "--unet-ckpt runs/torch_accuracy_ckpt_flagship_blind/rdunet_denoising.pth "
+     "--unet-base-filters 128 --diffusion-ckpt "
+     "runs/torch_gap_stage2/diffusion_RDUNet_model_checkpointed_epoch_200.pth "
+     "--epoch-label 200 --save-dir runs/torch_comparative_flagship",
+     NOT_RUN, "the comparative suite on the flagship blind and gap_stage2 checkpoints "
+     "(needs both)"),
+    ("search", "runs/torch_trial_results.csv", "runs/torch_trial_results.csv.study.json",
+     PKG + "run_search --trials 4 --epochs 2", NOT_RUN, "the C13 search, the 4-trial demo"),
     ("search_ref_scale", "runs/torch_trial_results_ref_scale.csv",
      # the sidecar is written when the study completes: a killed study's
      # partial CSV reads as missing
