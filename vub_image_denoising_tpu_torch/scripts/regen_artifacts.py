@@ -58,12 +58,15 @@ MANIFEST = [
      "--device-data --ckpt-dir runs/torch_accuracy_ckpt_flagship",
      f"40.7 min of training (9600 steps, 2444.3 s on an {CARD}; PERF.md §5)",
      "PERF.md, the accuracy protocol: RDUNet-128 flagship sigma = 25, 33.19 dB at the "
-     "default lr 1e-4 (37.14 on the JAX package's record: ROADMAP.md queue 3)"),
+     "default lr 1e-4 (the JAX package's 37.14 does not reproduce from this command: "
+     "ROADMAP.md, deliberate differences)"),
     ("flagship_blind", "runs/torch_accuracy_ckpt_flagship_blind",
      "runs/torch_accuracy_ckpt_flagship_blind/rdunet_denoising.pth",
      PKG + "train_accuracy --base-filters 128 --epochs 150 --batch-size 8 --remat false "
      "--device-data --sigma-list 10,20,30,40,50 --ckpt-dir runs/torch_accuracy_ckpt_flagship_blind",
-     NOT_RUN, "ROADMAP.md queue 1: RDUNet-128 flagship blind"),
+     f"42.0 min of training (9600 steps, 2520.0 s on an {CARD}; PERF.md §6)",
+     "PERF.md, the accuracy protocol: RDUNet-128 flagship blind, 32.43 dB mean (the JAX "
+     "package's 36.93 does not reproduce from this command either)"),
     ("diffusion", "runs/torch_accuracy_ckpt_diffusion",
      "runs/torch_accuracy_ckpt_diffusion/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
      PKG + "train_accuracy --algo diffusion --epochs 200 --batch-size 128 --n-train 2048 "
@@ -88,7 +91,8 @@ MANIFEST = [
      "runs/torch_gap_stage2/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
      PKG + "train_accuracy --algo diffusion --epochs 200 " + PROTOCOL + " --lr 2e-4 "
      "--loss-weights 0,1,0.3 --t-dist biased --tag gap-stage2 --ckpt-dir runs/torch_gap_stage2",
-     NOT_RUN, "the diffusion-gap stage 2: the pinned composed configuration at 200 epochs"),
+     f"32.4 min of training (3200 steps, 1944.0 s on an {CARD}; PERF.md §6)",
+     "the diffusion-gap stage 2: the pinned composed configuration at 200 epochs, 30.21 dB"),
     ("gap_stage3", "runs/torch_gap_stage3",
      "runs/torch_gap_stage3/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
      PKG + "run_diffusion_gap_stage2 --tag gap-stage3 --ckpt-dir runs/torch_gap_stage3 "
@@ -106,7 +110,8 @@ MANIFEST = [
      PKG + "train_gan_accuracy --algo hybrid --lam-feat 0.05 --lam-content 100 "
      "--lam-texture 0.001 --lam-adv 1 --adv-ramp-steps 320 --epochs 40 --eval-every 5 "
      "--tag c17-anchored --ckpt-dir runs/torch_accuracy_ckpt_hybrid_anchored",
-     NOT_RUN, "the diffusion-GAN hybrid at the content-anchored G objective"),
+     f"1.2 min of training (640 rounds, 73.2 s on an {CARD}; PERF.md §6)",
+     "the diffusion-GAN hybrid at the content-anchored G objective, best 19.33 dB"),
     ("comparative", "runs/torch_comparative", "runs/torch_comparative/summary.json",
      PKG + "run_comparative_suite --unet-ckpt runs/torch_accuracy_ckpt/rdunet_denoising.pth "
      "--diffusion-ckpt runs/torch_accuracy_ckpt_diffusion/"
@@ -123,7 +128,8 @@ MANIFEST = [
      NOT_RUN, "the comparative suite on the flagship blind and gap_stage2 checkpoints "
      "(needs both)"),
     ("search", "runs/torch_trial_results.csv", "runs/torch_trial_results.csv.study.json",
-     PKG + "run_search --trials 4 --epochs 2", NOT_RUN, "the C13 search, the 4-trial demo"),
+     PKG + "run_search --trials 4 --epochs 2",
+     f"1.1 min (the study's 66 s on an {CARD}; PERF.md §6)", "the C13 search, the 4-trial demo"),
     ("search_ref_scale", "runs/torch_trial_results_ref_scale.csv",
      # the sidecar is written when the study completes: a killed study's
      # partial CSV reads as missing
@@ -132,7 +138,8 @@ MANIFEST = [
      "--batch-size 16 --engine xla --bf16 --csv runs/torch_trial_results_ref_scale.csv",
      NOT_RUN, "the C13 search at the reference's scale; c13_winner reads it"),
     ("gan_search", "runs/torch_gan_trial_results.csv", "runs/torch_gan_trial_results.csv",
-     PKG + "run_gan_search --trials 8 --epochs 5", NOT_RUN, "the C16 GAN search"),
+     PKG + "run_gan_search --trials 8 --epochs 5",
+     f"0.5 min (the study's 32 s on an {CARD}; PERF.md §6)", "the C16 GAN search"),
 ]
 
 
