@@ -68,8 +68,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    timesteps, and one ``validate`` (a full sampler pass).  Times a step on
    each engine.
 11. Trains from a folder through the command line: writes a synthetic
-   DIV2K-style folder (8 RGB PNGs of 768x512: 48 patches of 256^2, 144
-   samples) and a SIDD tree of 4 pairs, then runs
+   DIV2K-style folder (4 RGB PNGs of 768x512: 24 patches of 256^2, 7
+   steps an epoch) and a SIDD tree of 4 pairs, then runs
    ``train.diffusion.main`` on RDUNetT-32, batch 8, engine "pallas", f32,
    default augmentation, 2 epochs: the epoch and final checkpoints load
    strict, kernel 1 launches 56 x steps + 280 x epochs times, all on the
@@ -84,9 +84,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    per batch, a "pallas" f32 epoch fed by each (against phase 10's step)
    and the card's idle share over such an epoch.
 12. Evaluates on SIDD through the command line: writes a synthetic
-   validation pair in the SIDD files' layout and keys ((20, 32, 256, 256,
-   3) uint8 blocks, half the real file's 40 images; smooth fields plus
-   noise) and a (2, 8, 256, 256, 3)
+   validation pair in the SIDD files' layout and keys ((10, 32, 256, 256,
+   3) uint8 blocks, a quarter of the real file's 40 images; smooth fields
+   plus noise) and a (2, 8, 256, 256, 3)
    benchmark file, then runs ``sidd_cli validate`` on a random-weight
    RDUNetT-32 with the CLI's defaults (10% of the blocks, batch 8, seed 0,
    T = 20) in f32 (``--engine auto``) and in bf16, and ``sidd_cli
@@ -95,7 +95,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    on the card equal the CPU's with TF32 off and on; the CSVs have the JAX
    package's layout; bf16's average PSNR is within EVAL_BF16_PSNR_GAP of
    f32's.  Prints the time per block (wall, device) and the host share
-   beside step 9's sampler, and runs the device health probe.
+   beside step 9's sampler, and runs the device health probe (in a child
+   process, beside the validation).
 13. Kernel 1 above width 256: holds the wide form
    (``csrc/fused_block_wide_tc.cu``) against the plain block at
    RDUNet(128)'s c = 512 and 1024 shapes on a 256^2 image, at batch 4 and
@@ -137,8 +138,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    56 / 112 / 88 per step (False, True, "highres"), all on the tensor
    cores, finite losses, peak memory and step ms; one SGD step under each
    mode equal to remat=False's (STEP_RTOL / STEP_ATOL).
-19. The searches on the card: ``run_search`` (3 trials x 1 epoch) on
-   loaders from step 11's folder, ``objective`` on two fixed trials (base
+19. The searches on the card: ``run_search`` (3 trials x 1 epoch, its
+   study seeded SEARCH_SEED: base 16, 16 and 48) on loaders from step 11's
+   folder, ``objective`` on two fixed trials (base
    16 and 48 at T = 10: every width from 16 to 384), ``run_gan_search`` (2
    trials x 1 epoch) on grayscale 256^2 pairs: the trial CSVs' column
    order, finite values, kernel-1 launches per trial by variant, seconds
@@ -146,17 +148,19 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
 20. The comparative runner's metric loop (``eval.compare.evaluate_models``)
    on seeded RDUNet(128) and RDUNetT-32 checkpoints at T = 20, LPIPS and
    DISTS on seeded weights: 2 batches of 8 x 256^2, timed, 14 + 14*T
-   launches per batch; one batch of 2 x 128^2 with BM3D on the card and on
+   launches per batch; one batch of 2 x 64^2 with BM3D on the card and on
    the CPU, the metric tables within COMPARE_PSNR_TOL / COMPARE_TOL.
 
 21. Export (``eval/export.py``): RDUNet-32 in f32 and bf16 and the
    sampler of RDUNetT-32 at 256^2, cut to T = EXPORT_TIMESTEPS = 4, from
    seeded weights: 14, 14 and 56 kernel-1 operator nodes in the programs;
    each artifact saved, then loaded and called in a fresh process
-   (``--export-worker``) at batch 8 and 3: 14 / 56 launches per call, all
-   on the tensor cores, outputs held to the module path on the card
-   (SERVED_F32_TOL, the sampler 2 * 4 * SERVED_F32_TOL, bf16 BF16_REL_TOL *
-   max|y|), times beside it.
+   (``--export-worker``, started with the phase; it loads each artifact
+   once saved, beside the next trace, and calls them after the module
+   path's timings) at batch 8 and 3: 14 /
+   56 launches per call, all on the tensor cores, outputs held to the
+   module path on the card (SERVED_F32_TOL, the sampler 2 * 4 *
+   SERVED_F32_TOL, bf16 BF16_REL_TOL * max|y|), times beside it.
 22. Two ranks on the one card (``--multirank-worker``, gloo: NCCL refuses
    two ranks on one GPU): the supervised and diffusion "flax" SGD steps of
    RDUNet(T)-32, 8 x 256^2, acc 4, f32, under replicated, fsdp and tp
@@ -176,7 +180,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    one process's timesteps, then one banded ``validate`` on 1 x 512^2 at
    T = 20: 280 launches a rank, the gathered output within
    SERVED_SAMPLER_F32_TOL of one process's; then one nccl rank through
-   ``denoise_cli --tensor-parallel`` with torchrun's environment.
+   ``denoise_cli --tensor-parallel`` with torchrun's environment, beside
+   the CLI without a group in a second process.
 
 23. The accuracy protocol (``scripts/train_accuracy.py``), cut: RDUNet-32
    supervised at 256^2, bf16, engine "flax", 64 train and 16 held-out
@@ -190,9 +195,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    diffusion run (2 epochs) evaluated through the T = 20 sampler (280
    launches per sampler call).
 24. The GAN protocol: ``train_gan_accuracy --algo attention`` at its recorded
-   settings (40 epochs of 16 steps, 64^2, batch 16; cuDNN, no kernel of
-   ours): best and final held-out PSNR, seconds; the best above the noisy
-   input's.
+   settings cut to 10 of its 40 epochs (of 16 steps, 64^2, batch 16; cuDNN,
+   no kernel of ours): best and final held-out PSNR, seconds; the best
+   above the noisy input's.
 25. ``run_comparative_suite`` on step 23's two checkpoints (3 images of
    64^2, BM3D) on the card and on the CPU: the metric tables within
    COMPARE_PSNR_TOL / COMPARE_TOL, 14 + 14*T launches on the card; then an
@@ -201,9 +206,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--profile]
    ``VUB_DOWN_MATMUL_BWD``) beside all off, each in a fresh process
    (``--switch-worker``; the switches are read at import): f32 and bf16 step
    times, params after one f32 SGD step within STEP_RTOL / STEP_ATOL of
-   the off step's.  The four workers start together and warm up; each then
-   waits at a gate until the one before it has finished, so no two time or
-   step at once.
+   the off step's.  The four workers start before step 23 and warm up
+   beside steps 23 and 24; each then waits at a gate until the runner and
+   the worker before it have finished, so no two time or step at once.
 26. The runner scripts in this process: ``scripts/measure_sidd_eval.py
    --scenes 1 --engines flax,pallas`` (RDUNetT-32, bf16, T = 20, 24 blocks
    of 256^2; the engines within 0.05 dB) and ``scripts/run_search.py
@@ -1124,8 +1129,8 @@ def compare_diffusion_with_xla(torch, batch):
 # 256^2 each: 48 patches, 144 samples with sigma in {15, 25, 50}) and a small
 # SIDD tree (4 scenes, one NOISY/GT pair each: 24 pairs), trained through the
 # CLI at full width.  Split 0.2: 115 train samples, 14 steps of 8 per epoch.
-FOLDER_IMAGES, FOLDER_SIZE, SIDD_SCENES = 8, (768, 512), 4
-FOLDER_EPOCHS, FOLDER_STEPS = 2, 14
+FOLDER_IMAGES, FOLDER_SIZE, SIDD_SCENES = 4, (768, 512), 4
+FOLDER_EPOCHS, FOLDER_STEPS = 2, 7
 
 
 def write_folder(root, seed=11):
@@ -1357,7 +1362,7 @@ def time_folder_loaders(torch, device, root, card, synthetic_step_ms):
 
 # SIDD evaluation (phase 12): the validation pair in the real files' layout
 # and keys, (images, blocks, 256, 256, 3) uint8, and a small benchmark file.
-SIDD_VAL_SHAPE = (20, 32, IMAGE_SIZE, IMAGE_SIZE, 3)  # the real file's 40 images cut to 20
+SIDD_VAL_SHAPE = (10, 32, IMAGE_SIZE, IMAGE_SIZE, 3)  # the real file's 40 images cut to 10
 SIDD_BENCH_SHAPE = (2, 8, IMAGE_SIZE, IMAGE_SIZE, 3)
 SIDD_CSV_HEADER = ["Method", "MACs (G)", "Inference Time (ms)", "PSNR", "SSIM"]
 EVAL_PSNR_TOL, EVAL_SSIM_TOL = 1e-4, 1e-5  # card metrics vs the CPU's, dB and SSIM units
@@ -1482,6 +1487,10 @@ def eval_main_path(torch, card, sampler_ms):
     out = {}
     csv.field_size_limit(1 << 24)  # a base64 block of 256x256x3 is 262144 characters
     phase_t0 = time.perf_counter()
+    # the probe's child process starts beside the validation: an import and
+    # one matmul, no load on the card beside the sampler's
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    probe = pool.submit(probe_device_exec)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         paths, gt_u8 = write_sidd_mats(tmp)
@@ -1568,7 +1577,8 @@ def eval_main_path(torch, card, sampler_ms):
                 or calls != -(-n_bench // 8) or n_launch != per_call * calls or n_tc != n_launch):
             fail(f"eval benchmark: {len(rows) - 1} rows, {calls} calls, {n_launch} launches")
 
-    ok, dt, detail = probe_device_exec()
+    ok, dt, detail = probe.result()
+    pool.shutdown()
     out["health"] = {"ok": ok, "sec": dt, "detail": detail}
     print(f"eval health probe: ok={ok} in {dt:.1f} s: {detail}", flush=True)
     if not ok:
@@ -2131,17 +2141,21 @@ FIXED_TRIAL_SEC_CUDA_CORE = {16: 2.1, 48: 22.6}
 REMAT_LAUNCHES = {False: 56, True: 112, "highres": 88}
 REMAT_STEPS = 2
 # Phase 19: the searches on the card, their trials cut to a fraction of the
-# phase-11 folder (one epoch of a few steps each).
-SEARCH_TRIALS, GAN_SEARCH_TRIALS, SEARCH_PERCENTAGE = 3, 2, 0.35
+# phase-11 folder (one epoch of a few steps each).  The study's seed draws
+# base 16, 16 and 48 (adamw, adamw, adam): the widths 16-384 that the fixed
+# trials also cover; seed 0's first trial, base 64 (40M parameters, the
+# phase's longest), added no route (its 512 runs the wide form, as in phase 13).
+SEARCH_TRIALS, GAN_SEARCH_TRIALS, SEARCH_PERCENTAGE, SEARCH_SEED = 3, 2, 0.35, 5
 FIXED_TRIALS = ({"base_filters": 16, "timesteps": 10, "optimizer_choice": "adamw",
                  "scheduler_choice": "step", "lr": 1e-4, "weight_decay": 1e-4},
                 {"base_filters": 48, "timesteps": 10, "optimizer_choice": "adam",
                  "scheduler_choice": "cosine", "lr": 1e-4})
 # Phase 20: the comparative runner: RDUNet(128) (its default U-Net) and
 # RDUNetT-32 at T = 20 on batches of 8 x 256^2, and the card against the CPU
-# on one batch of 2 x 128^2 with BM3D (the CPU tests' tolerances).
+# on one batch of 2 x 64^2 with BM3D (the CPU tests' tolerances; the CPU's
+# side, RDUNet(128), the sampler and BM3D, is most of the check's time).
 COMPARE_BATCHES, COMPARE_SIGMAS = 2, (15.0, 30.0)
-COMPARE_CHECK_SHAPE = (2, 3, 128, 128)
+COMPARE_CHECK_SHAPE = (2, 3, 64, 64)
 COMPARE_PSNR_TOL, COMPARE_TOL = 1e-3, 1e-5
 
 
@@ -2469,7 +2483,8 @@ def search_main_path(torch, device):
         hyperparams.objective = counted(objective, out["trials"])
         try:
             study = hyperparams.run_search(train_loader, val_loader, n_trials=SEARCH_TRIALS,
-                                           num_epochs=1, csv_path=csv_path, seed=0)
+                                           num_epochs=1, csv_path=csv_path,
+                                           seed=SEARCH_SEED)
         finally:
             hyperparams.objective = objective
         header = []
@@ -2556,7 +2571,7 @@ def compare_main_path(torch, device):
     T = 20, LPIPS and DISTS on seeded synthetic weights: COMPARE_BATCHES
     batches of 8 x 256^2, timed, kernel 1 launched 14 times per U-Net
     forward and 14 * T per sampler call, all on the tensor cores; then one
-    batch of 2 x 128^2 with BM3D on the card and on the CPU (TF32 off): the
+    batch of 2 x 64^2 with BM3D on the card and on the CPU (TF32 off): the
     metric tables equal to COMPARE_PSNR_TOL (dB) and COMPARE_TOL."""
     from vub_image_denoising_tpu_torch.eval.compare import KEYS, VARIANTS, evaluate_models
     from vub_image_denoising_tpu_torch.models import RDUNet, RDUNetT
@@ -2823,38 +2838,47 @@ def export_main_path(torch, device):
     phase_t0 = time.perf_counter()
     out = {"cases": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        cks = seeded_checkpoints(torch, tmp)
-        rng = np.random.RandomState(21)
-        xs = {b: torch.from_numpy(rng.uniform(-1, 1, (b, IMAGE_SIZE, IMAGE_SIZE, 3))
-                                  .astype(np.float32)) for b in EXPORT_BATCHES}
-        torch.save(xs, os.path.join(tmp, "inputs.pt"))
-        refs = {}
-        for name, arch, bf16 in EXPORT_CASES:
-            t0 = time.perf_counter()
-            programs = build_exported(cks[arch], arch, BASE_FILTERS, EXPORT_TIMESTEPS,
-                                      size=IMAGE_SIZE, bf16=bf16, platforms=(device.type,))
-            export_sec = time.perf_counter() - t0
-            nodes = kernel_nodes(programs[device.type])
-            path = save_exported(programs, os.path.join(tmp, f"{name}.pt2"))
-            want = 14 * (EXPORT_TIMESTEPS if arch == "diffusion" else 1)
-            forward, _ = build_apply(cks[arch], arch, BASE_FILTERS, EXPORT_TIMESTEPS, bf16=bf16,
-                                     device=device)
-            x8 = xs[8].to(device)
-            refs[name] = {b: forward(x.to(device)).cpu() for b, x in xs.items()}
-            ms = cuda_ms(torch, lambda: forward(x8), 2 if arch == "diffusion" else 10)
-            out["cases"][name] = {"export_sec": export_sec, "kernel_nodes": nodes,
-                                  "artifact_mb": os.path.getsize(path) / 1e6, "module_ms": ms}
-            print(f"export {name}: traced in {export_sec:.1f} s, {nodes} kernel-1 operator nodes "
-                  f"(want {want}), {os.path.getsize(path) / 1e6:.1f} MB; module path {ms:.3f} ms "
-                  f"per batch of 8", flush=True)
-            if nodes != want:
-                fail(f"export {name}: {nodes} kernel operator nodes, want {want}")
-        # a fresh process loads each artifact from its file and calls it
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--export-worker", tmp],
-                              capture_output=True, text=True, timeout=900)
-        print(proc.stdout, end="", flush=True)
-        if proc.returncode != 0:
-            fail(f"the export worker failed:\n{proc.stderr[-4000:]}")
+        # the fresh process starts now and loads each artifact once it is
+        # saved, beside the next one's trace; it calls and times them once
+        # this process's own timings are done
+        worker = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--export-worker",
+                                   tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            cks = seeded_checkpoints(torch, tmp)
+            rng = np.random.RandomState(21)
+            xs = {b: torch.from_numpy(rng.uniform(-1, 1, (b, IMAGE_SIZE, IMAGE_SIZE, 3))
+                                      .astype(np.float32)) for b in EXPORT_BATCHES}
+            torch.save(xs, os.path.join(tmp, "inputs.pt"))
+            refs = {}
+            for name, arch, bf16 in EXPORT_CASES:
+                t0 = time.perf_counter()
+                programs = build_exported(cks[arch], arch, BASE_FILTERS, EXPORT_TIMESTEPS,
+                                          size=IMAGE_SIZE, bf16=bf16, platforms=(device.type,))
+                export_sec = time.perf_counter() - t0
+                nodes = kernel_nodes(programs[device.type])
+                path = save_exported(programs, os.path.join(tmp, f"{name}.pt2"))
+                open(os.path.join(tmp, f"{name}.saved"), "w").close()
+                want = 14 * (EXPORT_TIMESTEPS if arch == "diffusion" else 1)
+                forward, _ = build_apply(cks[arch], arch, BASE_FILTERS, EXPORT_TIMESTEPS,
+                                         bf16=bf16, device=device)
+                x8 = xs[8].to(device)
+                refs[name] = {b: forward(x.to(device)).cpu() for b, x in xs.items()}
+                ms = cuda_ms(torch, lambda: forward(x8), 2 if arch == "diffusion" else 10)
+                out["cases"][name] = {"export_sec": export_sec, "kernel_nodes": nodes,
+                                      "artifact_mb": os.path.getsize(path) / 1e6, "module_ms": ms}
+                print(f"export {name}: traced in {export_sec:.1f} s, {nodes} kernel-1 operator "
+                      f"nodes (want {want}), {os.path.getsize(path) / 1e6:.1f} MB; module path "
+                      f"{ms:.3f} ms per batch of 8", flush=True)
+                if nodes != want:
+                    fail(f"export {name}: {nodes} kernel operator nodes, want {want}")
+            # a fresh process loads each artifact from its file and calls it
+            open(os.path.join(tmp, "export.go"), "w").close()
+            stdout, stderr = worker.communicate(timeout=900)
+            print(stdout, end="", flush=True)
+            if worker.returncode != 0:
+                fail(f"the export worker failed:\n{stderr[-4000:]}")
+        finally:
+            worker.kill()
         got = torch.load(os.path.join(tmp, "export_results.pt"))
         for name, arch, bf16 in EXPORT_CASES:
             rec, res = out["cases"][name], got[name]
@@ -2883,8 +2907,10 @@ def export_main_path(torch, device):
 
 
 def export_worker(tmp):
-    """``--export-worker``: load each artifact of phase 21 in this fresh
-    process, call it at EXPORT_BATCHES, count the launches, time batch 8."""
+    """``--export-worker``: in this fresh process, load each artifact of
+    phase 21 once the parent has saved it (``<tmp>/<name>.saved``), then,
+    once ``<tmp>/export.go`` exists (the parent's own timings done), call
+    each at EXPORT_BATCHES, count the launches, time batch 8."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -2892,13 +2918,25 @@ def export_worker(tmp):
     from vub_image_denoising_tpu_torch.eval.export import load_exported
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as fb
 
+    def wait_for(name):
+        deadline = time.monotonic() + 900
+        while not os.path.exists(os.path.join(tmp, name)):
+            if time.monotonic() > deadline:
+                sys.exit(f"export worker: no {name}")
+            time.sleep(0.05)
+
     enable_strict_precision()  # f32 convs without TF32, as build_apply sets it
+    loaded = {}
+    for name, _, _ in EXPORT_CASES:
+        wait_for(f"{name}.saved")
+        t0 = time.perf_counter()
+        loaded[name] = (load_exported(os.path.join(tmp, f"{name}.pt2")),
+                        time.perf_counter() - t0)
+    wait_for("export.go")
     xs = torch.load(os.path.join(tmp, "inputs.pt"))
     results = {}
     for name, arch, _ in EXPORT_CASES:
-        t0 = time.perf_counter()
-        fn = load_exported(os.path.join(tmp, f"{name}.pt2"))
-        load_sec = time.perf_counter() - t0
+        fn, load_sec = loaded[name]
         res = {"load_sec": load_sec, "y": {}, "launches": {}}
         for b in EXPORT_BATCHES:
             x = xs[b].cuda()
@@ -3054,7 +3092,8 @@ def spatial_sgd_steps(torch, cks, device, batch, layout, kind="supervised", val=
 
 def multi_device_main_path(torch, device):
     """Phase 22 (module docstring): two gloo ranks on the card against one
-    process, and one nccl rank through the CLI's init path."""
+    process, and one nccl rank through the CLI's init path beside the CLI
+    without a group."""
     import numpy as np
 
     phase_t0 = time.perf_counter()
@@ -3075,46 +3114,54 @@ def multi_device_main_path(torch, device):
                "x8": rng.uniform(-1, 1, (8, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)}
         torch.save(inp, os.path.join(tmp, "inputs.pt"))
 
-        # one process: the references and their times
-        refs, one = {}, {}
-        for kind in ("supervised", "diffusion"):
-            refs[kind] = multi_device_sgd_step(torch, kind, "replicated", cks, device, batch)
-            one[f"{kind}_step_ms"] = refs[kind][2]
-        refs["spatial"] = spatial_sgd_steps(torch, cks, device, spatial_batch, "batch")
-        refs["spatial_diffusion"] = spatial_sgd_steps(torch, cks, device, spatial_batch, "batch",
-                                                      "diffusion", spatial_val)
-        for key in ("spatial", "spatial_diffusion"):
-            one[key] = {k: v for k, v in refs[key].items() if k != "params"}
-            print(f"{key} reference, one process, 1 x 3 x {SPATIAL_SIDE}^2: steps "
-                  f"{[round(st['ms'], 1) for st in one[key]['steps']]} ms, kernel-1 launches "
-                  f"{[st['launches'] for st in one[key]['steps']]}", flush=True)
-        one["spatial_diffusion"]["validate"] = {
-            k: v for k, v in refs["spatial_diffusion"]["validate"].items() if k != "y"}
-        from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
-
-        forward, _ = build_apply(cks["rdunet"], "rdunet", BASE_FILTERS, device=device)
-        tile_x = torch.from_numpy(inp["tile"])[None].to(device)
-        x8 = torch.from_numpy(inp["x8"]).to(device)
-        refs["tiles"] = forward(tile_x)[0].cpu().numpy()
-        one["tiles_ms"] = cuda_ms(torch, lambda: forward(tile_x), 2)
-        refs["tp_forward"] = forward(x8).cpu().numpy()
-        one["forward_ms"] = cuda_ms(torch, lambda: forward(x8), 5)
-        sampler, _ = build_apply(cks["diffusion"], "diffusion", BASE_FILTERS, TIMESTEPS,
-                                 device=device)
-        refs["pipeline"] = sampler(x8).cpu().numpy()
-        one["sampler_ms"] = cuda_ms(torch, lambda: sampler(x8), 1)
-        out["one_process"] = one
-        torch.cuda.empty_cache()  # the ranks share the card with this process
-
+        # the ranks and the two CLI runs start now: the ranks import and join
+        # their gloo group, then wait for <tmp>/multirank.go, made once the
+        # one-process references below are taken (their times alone on the
+        # card but for the CLI runs' two forwards)
         port = free_port()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multirank-worker",
                                    str(r), str(MULTI_WORLD), port, tmp],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for r in range(MULTI_WORLD)]
+        cli_procs = {}
         try:
+            cli_procs, cli_outs = start_cli_pair(tmp, cks)
+            # one process: the references and their times
+            refs, one = {}, {}
+            for kind in ("supervised", "diffusion"):
+                refs[kind] = multi_device_sgd_step(torch, kind, "replicated", cks, device, batch)
+                one[f"{kind}_step_ms"] = refs[kind][2]
+            refs["spatial"] = spatial_sgd_steps(torch, cks, device, spatial_batch, "batch")
+            refs["spatial_diffusion"] = spatial_sgd_steps(torch, cks, device, spatial_batch,
+                                                          "batch", "diffusion", spatial_val)
+            for key in ("spatial", "spatial_diffusion"):
+                one[key] = {k: v for k, v in refs[key].items() if k != "params"}
+                print(f"{key} reference, one process, 1 x 3 x {SPATIAL_SIDE}^2: steps "
+                      f"{[round(st['ms'], 1) for st in one[key]['steps']]} ms, kernel-1 launches "
+                      f"{[st['launches'] for st in one[key]['steps']]}", flush=True)
+            one["spatial_diffusion"]["validate"] = {
+                k: v for k, v in refs["spatial_diffusion"]["validate"].items() if k != "y"}
+            from vub_image_denoising_tpu_torch.eval.denoise_cli import build_apply
+
+            forward, _ = build_apply(cks["rdunet"], "rdunet", BASE_FILTERS, device=device)
+            tile_x = torch.from_numpy(inp["tile"])[None].to(device)
+            x8 = torch.from_numpy(inp["x8"]).to(device)
+            # each reference call is its timing's warm-up
+            refs["tiles"] = forward(tile_x)[0].cpu().numpy()
+            one["tiles_ms"] = cuda_ms(torch, lambda: forward(tile_x), 1, warmup=0)
+            refs["tp_forward"] = forward(x8).cpu().numpy()
+            one["forward_ms"] = cuda_ms(torch, lambda: forward(x8), 5, warmup=0)
+            sampler, _ = build_apply(cks["diffusion"], "diffusion", BASE_FILTERS, TIMESTEPS,
+                                     device=device)
+            refs["pipeline"] = sampler(x8).cpu().numpy()
+            one["sampler_ms"] = cuda_ms(torch, lambda: sampler(x8), 1, warmup=0)
+            out["one_process"] = one
+            torch.cuda.empty_cache()  # the ranks share the card with this process
+            open(os.path.join(tmp, "multirank.go"), "w").close()
             logs = [p.communicate(timeout=900)[0] for p in procs]
+            out["cli_nccl"] = check_cli_pair(cli_procs, cli_outs)
         finally:
-            for p in procs:
+            for p in (*procs, *cli_procs.values()):
                 p.kill()
         for r, log in enumerate(logs):
             print("".join(f"[rank {r}] {line}\n" for line in log.splitlines()
@@ -3167,7 +3214,6 @@ def multi_device_main_path(torch, device):
                      f"{res['host_copies']}")
             per_rank.append(rec)
         out["ranks"] = per_rank
-        out["cli_nccl"] = nccl_cli_check(torch, tmp, cks)
     out["launches"] = sum(sum(rec["launches"].values()) for rec in out["ranks"])
     out["phase_sec"] = time.perf_counter() - phase_t0
     print(f"multi-device phase: {out['phase_sec']:.1f} s (two ranks share one card: their "
@@ -3231,28 +3277,42 @@ def free_port():
         return str(s.getsockname()[1])
 
 
-def nccl_cli_check(torch, tmp, cks):
-    """One nccl rank through denoise_cli's init path (torchrun's environment,
-    world 1, --tensor-parallel) against the CLI without a group: the PNGs
-    within 1 level."""
+def start_cli_pair(tmp, cks):
+    """Start denoise_cli twice, side by side, on one seeded PNG: one nccl
+    rank through its init path (torchrun's environment, world 1,
+    --tensor-parallel) and the CLI without a group; returns (processes,
+    output paths)."""
     import numpy as np
     from PIL import Image
 
     img = os.path.join(tmp, "cli_in.png")
     Image.fromarray(np.random.RandomState(3).randint(0, 256, (IMAGE_SIZE, IMAGE_SIZE, 3),
                                                      np.uint8)).save(img)
-    outs = {}
-    for name, extra_env, flags in (("plain", {}, []),
-                                   ("nccl", {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": free_port(),
-                                             "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"},
-                                    ["--tensor-parallel"])):
+    outs, procs = {}, {}
+    for name, extra_env, flags in (
+            ("plain", {}, []),
+            ("nccl", {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": free_port(),
+                      "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"},
+             ["--tensor-parallel"])):
         outs[name] = os.path.join(tmp, f"cli_{name}.png")
-        proc = subprocess.run(
+        procs[name] = subprocess.Popen(
             [sys.executable, "-m", "vub_image_denoising_tpu_torch.eval.denoise_cli",
              "--checkpoint", cks["rdunet"], "--input", img, "--output", outs[name], *flags],
-            capture_output=True, text=True, timeout=600, cwd=ROOT, env={**os.environ, **extra_env})
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+            env={**os.environ, **extra_env})
+    return procs, outs
+
+
+def check_cli_pair(procs, outs):
+    """``start_cli_pair``'s two runs ended with exit 0 and PNGs within 1
+    level of each other."""
+    import numpy as np
+    from PIL import Image
+
+    for name, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
         if proc.returncode != 0:
-            fail(f"denoise_cli ({name}) failed:\n{proc.stderr[-3000:]}")
+            fail(f"denoise_cli ({name}) failed:\n{err[-3000:]}")
     a, b = (np.asarray(Image.open(outs[k]), np.int16) for k in ("plain", "nccl"))
     diff = int(np.abs(a - b).max())
     print(f"denoise_cli --tensor-parallel on one nccl rank (torchrun's environment) vs without a "
@@ -3279,6 +3339,12 @@ def multirank_worker(rank, world, port, tmp):
     device = torch.device("cuda", 0)
     pm.init_distributed("gloo", f"tcp://127.0.0.1:{port}", world, rank)
     inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)  # written by the parent
+    # the parent takes its one-process references first, alone on the card
+    deadline = time.monotonic() + 900
+    while not os.path.exists(os.path.join(tmp, "multirank.go")):
+        if time.monotonic() > deadline:
+            sys.exit("multirank worker: no go file")
+        time.sleep(0.05)
     cks = inp["cks"]
     res = {"params": {}, "loss": {}, "launches": {}, "ms": {}, "fraction": {}, "out": {}}
     lo = rank * TRAIN_BATCH // world
@@ -3340,7 +3406,9 @@ PROTOCOL_CPU_IMAGES = 8     # held-out images scored on the CPU beside the card
 PROTOCOL_PSNR_TOL = 1e-3    # dB, per image, card vs CPU in f32
 # Phase 24: the GAN protocol at its recorded settings (the script's defaults:
 # 40 epochs of 16 steps, 64^2, batch 16).
-GAN_PROTOCOL_ARGS = ["--algo", "attention"]
+# the attention GAN's recorded settings, cut to 10 of their 40 epochs (its
+# held-out PSNR passed 25.7 dB by epoch 10 on the H100, the noisy input's 20.2)
+GAN_PROTOCOL_ARGS = ["--algo", "attention", "--epochs", "10"]
 # Phase 25: the comparative runner on phase 23's two checkpoints, cut to a
 # few small images, on the card and on the CPU; then one "xla" supervised
 # step of RDUNet-32 under each fused_apply switch in a fresh process.
@@ -3574,18 +3642,38 @@ def gan_protocol_main_path(torch, tmp):
     return out
 
 
-def runner_and_switches_main_path(torch, device, tmp, paths):
+def start_switch_workers(tmp):
+    """Phase 25's ``--switch-worker`` processes, one per SWITCH_CASES entry:
+    they import and warm up, then each waits at its gate file; returns
+    (processes, logs) by name."""
+    procs, logs = {}, {}
+    for name, env in SWITCH_CASES.items():
+        logs[name] = open(os.path.join(tmp, f"switch_{name}.log"), "w+")
+        procs[name] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--switch-worker", tmp, name],
+            stdout=logs[name], stderr=subprocess.STDOUT, text=True, env={**os.environ, **env})
+    return procs, logs
+
+
+def stop_switch_workers(procs, logs):
+    for name, proc in procs.items():
+        proc.kill()
+        logs[name].close()
+
+
+def runner_and_switches_main_path(torch, device, tmp, paths, procs, logs):
     """Phase 25: the comparative runner on the trained checkpoints on the
     card and the CPU (metric tables within COMPARE_PSNR_TOL / COMPARE_TOL;
-    14 + 14*T launches per batch on the card), then ``switch_step`` in a
-    fresh process per switch: params after one SGD step within STEP_RTOL /
-    STEP_ATOL of the switches-off step's, step times beside it."""
+    14 + 14*T launches per batch on the card), then the ``switch_step`` of
+    each ``start_switch_workers`` process, their gates opened in turn:
+    params after one SGD step within STEP_RTOL / STEP_ATOL of the
+    switches-off step's, step times beside it."""
     from vub_image_denoising_tpu_torch.eval.compare import KEYS, VARIANTS
     from vub_image_denoising_tpu_torch.ops.fused_block import fused_denoising_block as k1
     from vub_image_denoising_tpu_torch.scripts import run_comparative_suite as rcs
 
     phase_t0 = time.perf_counter()
-    out = {}
+    out = {"switches": {}}
     metrics = {}
     for name, dev in (("card", device.type), ("cpu", "cpu")):
         args = rcs.build_arg_parser().parse_args(RUNNER_ARGS + [
@@ -3610,38 +3698,23 @@ def runner_and_switches_main_path(torch, device, tmp, paths):
     bad = {key: e for key, e in worst.items()
            if not e <= (COMPARE_PSNR_TOL if key.startswith("psnr") else COMPARE_TOL)}
     print(f"runner on the trained checkpoints ({' '.join(RUNNER_ARGS[:6])}, BM3D): card "
-          f"{out['card_sec']:.1f} s, CPU {out['cpu_sec']:.1f} s; summary {out['summary']}; card vs "
-          f"CPU worst |diff| {worst}; kernel-1 launches {out['launches']} (want {want})",
-          flush=True)
+          f"{out['card_sec']:.1f} s, CPU {out['cpu_sec']:.1f} s; summary {out['summary']}; "
+          f"card vs CPU worst |diff| {worst}; kernel-1 launches {out['launches']} (want "
+          f"{want})", flush=True)
     if bad or out["launches"] != {"all": want, "tc": want, "wide": 0, "cuda_core": 0}:
         fail(f"runner: card vs CPU {bad}, launches {out['launches']}")
 
-    out["switches"] = {}
-    # the workers start together and warm up; each times and steps only
-    # once its gate file is there, which is made after the previous one ended
-    logs, procs = {}, {}
-    try:
-        for name, env in SWITCH_CASES.items():
-            logs[name] = open(os.path.join(tmp, f"switch_{name}.log"), "w+")
-            procs[name] = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--switch-worker", tmp, name],
-                stdout=logs[name], stderr=subprocess.STDOUT, text=True,
-                env={**os.environ, **env})
-        for name, env in SWITCH_CASES.items():
-            open(os.path.join(tmp, f"switch_{name}.go"), "w").close()
-            rc = procs[name].wait(timeout=600)
-            logs[name].seek(0)
-            log = logs[name].read()
-            print("".join(line + "\n" for line in log.splitlines()
-                          if line.startswith("switch worker")), end="", flush=True)
-            if rc != 0:
-                fail(f"the switch worker {name} failed:\n{log[-4000:]}")
-            res = torch.load(os.path.join(tmp, f"switch_{name}.pt"), weights_only=False)
-            out["switches"][name] = {"env": env, "ms": res["ms"], "launches": res["launches"]}
-    finally:
-        for name, proc in procs.items():
-            proc.kill()
-            logs[name].close()
+    for name, env in SWITCH_CASES.items():
+        open(os.path.join(tmp, f"switch_{name}.go"), "w").close()
+        rc = procs[name].wait(timeout=600)
+        logs[name].seek(0)
+        log = logs[name].read()
+        print("".join(line + "\n" for line in log.splitlines()
+                      if line.startswith("switch worker")), end="", flush=True)
+        if rc != 0:
+            fail(f"the switch worker {name} failed:\n{log[-4000:]}")
+        res = torch.load(os.path.join(tmp, f"switch_{name}.pt"), weights_only=False)
+        out["switches"][name] = {"env": env, "ms": res["ms"], "launches": res["launches"]}
     off = torch.load(os.path.join(tmp, "switch_off.pt"), weights_only=False)["params"]
     for name in SWITCH_CASES:
         rec = out["switches"][name]
@@ -4073,12 +4146,18 @@ def main():
     multi = multi_device_main_path(torch, device)
     phase_sec[22] = multi["phase_sec"]
     with tempfile.TemporaryDirectory() as tmp:
-        protocol, trained = protocol_main_path(torch, device, tmp, synth.name)
-        phase_sec[23] = protocol["phase_sec"]
-        gan_protocol = gan_protocol_main_path(torch, tmp)
-        phase_sec[24] = gan_protocol["phase_sec"]
-        runner = runner_and_switches_main_path(torch, device, tmp, trained)
-        phase_sec[25] = runner["phase_sec"]
+        # phase 25's switch workers import and warm up beside phases 23
+        # and 24, then wait at their gates
+        switch_workers = start_switch_workers(tmp)
+        try:
+            protocol, trained = protocol_main_path(torch, device, tmp, synth.name)
+            phase_sec[23] = protocol["phase_sec"]
+            gan_protocol = gan_protocol_main_path(torch, tmp)
+            phase_sec[24] = gan_protocol["phase_sec"]
+            runner = runner_and_switches_main_path(torch, device, tmp, trained, *switch_workers)
+            phase_sec[25] = runner["phase_sec"]
+        finally:
+            stop_switch_workers(*switch_workers)
     scripts = runner_scripts_main_path(torch, synth.name)
     phase_sec[26] = scripts["phase_sec"]
     flagship = flagship_main_path(torch, device, synth.name)

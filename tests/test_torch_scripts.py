@@ -323,18 +323,23 @@ JAX_RUNNERS = {"train_tpu_accuracy": "train_accuracy",
                "run_diffusion_gap_stage2": "run_diffusion_gap_stage2"}
 
 
+def jax_manifest():
+    tree = jax_source("scripts/regen_artifacts.py")
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) and node.targets[0].id == "MANIFEST")
+
+
 def test_regen_artifacts_has_every_jax_entry():
     """Every entry of scripts/regen_artifacts.py's MANIFEST (read from its
     AST) but the benchmark's serve_sweep has a port entry, under its name or
     without "_tpu", that runs the port's counterpart of its script with the
-    same flags, the paths under runs/torch_*."""
+    same flags, the paths under runs/torch_*; the one flag value that
+    differs on purpose is gap_stage3's budget, one chip call's."""
     from vub_image_denoising_tpu_torch.scripts import regen_artifacts as ra
 
-    tree = jax_source("scripts/regen_artifacts.py")
-    jax_manifest = next(ast.literal_eval(node.value) for node in tree.body
-                        if isinstance(node, ast.Assign) and node.targets[0].id == "MANIFEST")
     port = {e[0]: shlex.split(e[3]) for e in ra.MANIFEST}
-    for name, _, _, cmd, _, _ in jax_manifest:
+    deliberate = {"gap_stage3": {"--budget-s": str(ra.CALL_BUDGET_S)}}
+    for name, _, _, cmd, _, _ in jax_manifest():
         if name == "serve_sweep":
             continue
         words = port[name[:-len("_tpu")] if name.endswith("_tpu") else name]
@@ -343,8 +348,36 @@ def test_regen_artifacts_has_every_jax_entry():
         assert words[2] == "vub_image_denoising_tpu_torch.scripts." + JAX_RUNNERS[script], name
         want = [w.replace("runs/", "runs/torch_").replace("_tpu", "")
                 for w in knob_flags(jax_words)]
+        for flag, value in deliberate.get(name, {}).items():
+            want[want.index(flag) + 1] = value
         assert knob_flags(words) == want, name
     assert "run_diffusion_gap_stage2" not in " ".join(port["gap_stage2"])
+
+
+def test_gap_stage3_budget_fits_one_chip_call():
+    """gap_stage3's --budget-s, read from its manifest command, caps a
+    gap-bf64 row as JAX's grid timed it (runs/accuracy_log.jsonl: 40 epochs
+    in 1552.8 s; base 64 is the grid's costliest knob) to a run that ends,
+    with the 500 s the cap keeps for set-up and the final evaluation,
+    inside 3000 s of a 3600 s call; JAX's own 9000 s did not cap it."""
+    from vub_image_denoising_tpu_torch.scripts import regen_artifacts as ra
+    from vub_image_denoising_tpu_torch.scripts import run_diffusion_gap_stage2 as stage2
+
+    words = shlex.split(dict((e[0], e[3]) for e in ra.MANIFEST)["gap_stage3"])
+    budget = int(words[words.index("--budget-s") + 1])
+    assert budget <= 3000
+    with open(os.path.join(REPO, "runs/accuracy_log.jsonl")) as f:
+        bf64 = next(r for r in map(json.loads, f) if r.get("tag") == "gap-bf64")
+    assert (bf64["epochs"], bf64["train_seconds"]) == (40, 1552.8)
+    epochs = stage2.fit_epochs_to_budget(bf64, 200, budget)
+    assert 40 <= epochs < 200 and epochs % 20 == 0
+    assert epochs * bf64["train_seconds"] / bf64["epochs"] + 500 <= 3000
+    # the command the re-composition would run carries the capped epochs
+    cmd = stage2.stage2_command(bf64, budget_s=budget)
+    assert cmd[cmd.index("--epochs") + 1] == str(epochs)
+    jax_words = shlex.split(dict((e[0], e[3]) for e in jax_manifest())["gap_stage3"])
+    jax_budget = int(jax_words[jax_words.index("--budget-s") + 1])
+    assert stage2.fit_epochs_to_budget(bf64, 200, jax_budget) == 200
 
 
 def test_job_dispatches_its_three_tasks(monkeypatch, capsys):

@@ -32,8 +32,9 @@ import sys
 import time
 
 PKG = "python -m vub_image_denoising_tpu_torch.scripts."
-NOT_RUN = "not run on the card"
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+# the wall seconds a run may take so that it ends inside one chip call
+CALL_BUDGET_S = 3000
 PROTOCOL = ("--batch-size 128 --n-train 2048 --sched-steps-per-epoch 300 --device-data "
             "--eval-every 20")
 
@@ -50,7 +51,7 @@ MANIFEST = [
      PKG + "train_accuracy --epochs 150 --batch-size 128 --lr 3e-4 "
      "--sched-steps-per-epoch 100 --device-data --sigma-list 10,20,30,40,50 "
      "--ckpt-dir runs/torch_accuracy_ckpt",
-     "run on the card, not timed",
+     f"6.4 min of training (600 steps, 384.8 s on an {CARD}; PERF.md §6)",
      "PERF.md, the accuracy protocol: RDUNet-32 supervised blind, 31.03 dB"),
     ("flagship", "runs/torch_accuracy_ckpt_flagship",
      "runs/torch_accuracy_ckpt_flagship/rdunet_denoising.pth",
@@ -64,7 +65,8 @@ MANIFEST = [
      "runs/torch_accuracy_ckpt_flagship_blind/rdunet_denoising.pth",
      PKG + "train_accuracy --base-filters 128 --epochs 150 --batch-size 8 --remat false "
      "--device-data --sigma-list 10,20,30,40,50 --ckpt-dir runs/torch_accuracy_ckpt_flagship_blind",
-     f"42.0 min of training (9600 steps, 2520.0 s on an {CARD}; PERF.md §6)",
+     f"42.0 min of training (9600 steps, 2520.0 s on an {CARD}; with --epochs 50, 3200 "
+     "steps in 929.8 s to the same 32.43 dB; PERF.md §6)",
      "PERF.md, the accuracy protocol: RDUNet-128 flagship blind, 32.43 dB mean (the JAX "
      "package's 36.93 does not reproduce from this command either)"),
     ("diffusion", "runs/torch_accuracy_ckpt_diffusion",
@@ -72,7 +74,7 @@ MANIFEST = [
      PKG + "train_accuracy --algo diffusion --epochs 200 --batch-size 128 --n-train 2048 "
      "--lr 2e-4 --sched-steps-per-epoch 300 --device-data "
      "--ckpt-dir runs/torch_accuracy_ckpt_diffusion",
-     f"29.0 min of training (3200 steps, 1739.1 s on an {CARD}; PERF.md §5)",
+     f"29.0 min of training (3200 steps, 1739.1 and 1735.2 s on an {CARD}; PERF.md §5)",
      "PERF.md, the accuracy protocol: RDUNetT-32 diffusion (T = 20) at 3200 steps, 29.49 dB"),
     ("gan_attention", "runs/torch_accuracy_ckpt_gan_attention",
      "runs/torch_accuracy_ckpt_gan_attention/*_generator_*.pth",
@@ -81,7 +83,10 @@ MANIFEST = [
      "PERF.md, the accuracy protocol: attention GAN best 29.69 dB"),
     ("gap_stage1", "runs/torch_gap_*",
      "runs/torch_gap_ssim_biased/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
-     PKG + "run_diffusion_gap", NOT_RUN,
+     PKG + "run_diffusion_gap",
+     "not run; about 65 min projected, so two calls through --only (640 steps a "
+     f"configuration at the 0.54 s a step of 3200 diffusion steps in 1739.1 s on an {CARD}, "
+     "gap-bf64 about 4x; PERF.md §5)",
      "the diffusion-gap grid: eight rows gap-* of runs/torch_accuracy_log.jsonl"),
     # the composed configuration as the repo's record trained it (SSIM 0.3 and
     # the biased t over the then-partial stage-1 grid), pinned: re-composing
@@ -91,12 +96,16 @@ MANIFEST = [
      "runs/torch_gap_stage2/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
      PKG + "train_accuracy --algo diffusion --epochs 200 " + PROTOCOL + " --lr 2e-4 "
      "--loss-weights 0,1,0.3 --t-dist biased --tag gap-stage2 --ckpt-dir runs/torch_gap_stage2",
-     f"32.4 min of training (3200 steps, 1944.0 s on an {CARD}; PERF.md §6)",
+     f"32.4 min of training (3200 steps, 1944.0 and 1858.2 s on an {CARD}; PERF.md §6)",
      "the diffusion-gap stage 2: the pinned composed configuration at 200 epochs, 30.21 dB"),
+    # the budget is one chip call's (60 min, with the kernels' build and the
+    # 2048-image cache inside it): the repo's 9000 s was its TPU queue's
+    # window, and a run longer than a call is lost with the machine
     ("gap_stage3", "runs/torch_gap_stage3",
      "runs/torch_gap_stage3/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
      PKG + "run_diffusion_gap_stage2 --tag gap-stage3 --ckpt-dir runs/torch_gap_stage3 "
-     "--budget-s 9000", NOT_RUN,
+     "--budget-s " + str(CALL_BUDGET_S),
+     f"not run; capped at {CALL_BUDGET_S / 60:.0f} min by its budget, after gap_stage1",
      "the diffusion-gap stage 3: the winner re-composed over the whole gap_stage1 grid"),
     ("rca_promoted", "runs/torch_accuracy_ckpt_rca_promoted",
      "runs/torch_accuracy_ckpt_rca_promoted/checkpoint_epoch_*.pth",
@@ -104,7 +113,9 @@ MANIFEST = [
      "--lam-texture 0.001 --lam-adv 1 --adv-ramp-steps 2560 --size 128 --n-train 2048 "
      "--n-val 64 --batch-size 16 --epochs 60 --eval-every 5 --tag rca-promoted "
      "--ckpt-dir runs/torch_accuracy_ckpt_rca_promoted",
-     NOT_RUN, "RCA-GAN at the content-anchored G objective, 128^2, 2048 images"),
+     "not run whole; about 19 min of training projected (an epoch of 128 rounds, its "
+     f"evaluation included, in 19.2 s on an {CARD}; PERF.md §6)",
+     "RCA-GAN at the content-anchored G objective, 128^2, 2048 images"),
     ("hybrid_anchored", "runs/torch_accuracy_ckpt_hybrid_anchored",
      "runs/torch_accuracy_ckpt_hybrid_anchored/checkpoint_epoch_*.pth",
      PKG + "train_gan_accuracy --algo hybrid --lam-feat 0.05 --lam-content 100 "
@@ -117,7 +128,10 @@ MANIFEST = [
      "--diffusion-ckpt runs/torch_accuracy_ckpt_diffusion/"
      "diffusion_RDUNet_model_checkpointed_epoch_200.pth --epoch-label 200 "
      "--save-dir runs/torch_comparative",
-     NOT_RUN, "the comparative suite on the blind and diffusion checkpoints (needs both)"),
+     f"2.2 min (133.5 s of runner, BM3D 4.3 s an image on the host, on an {CARD}; "
+     "PERF.md §6)",
+     "the comparative suite on the blind and diffusion checkpoints (needs both): "
+     "runs/torch_comparative_summary.json"),
     ("comparative_flagship", "runs/torch_comparative_flagship",
      "runs/torch_comparative_flagship/summary.json",
      PKG + "run_comparative_suite "
@@ -125,8 +139,10 @@ MANIFEST = [
      "--unet-base-filters 128 --diffusion-ckpt "
      "runs/torch_gap_stage2/diffusion_RDUNet_model_checkpointed_epoch_200.pth "
      "--epoch-label 200 --save-dir runs/torch_comparative_flagship",
-     NOT_RUN, "the comparative suite on the flagship blind and gap_stage2 checkpoints "
-     "(needs both)"),
+     "about 2.1 min (19.6 s of runner with --no-bm3d, and BM3D's 25 images at 4.3 s "
+     f"as in the comparative entry, on an {CARD}; PERF.md §6)",
+     "the comparative suite on the flagship blind and gap_stage2 checkpoints (needs both): "
+     "runs/torch_comparative_flagship_summary.json"),
     ("search", "runs/torch_trial_results.csv", "runs/torch_trial_results.csv.study.json",
      PKG + "run_search --trials 4 --epochs 2",
      f"1.1 min (the study's 66 s on an {CARD}; PERF.md §6)", "the C13 search, the 4-trial demo"),
@@ -136,7 +152,9 @@ MANIFEST = [
      "runs/torch_trial_results_ref_scale.csv.study.json",
      PKG + "run_search --trials 25 --epochs 5 --size 256 --n-train 256 --n-val 16 "
      "--batch-size 16 --engine xla --bf16 --csv runs/torch_trial_results_ref_scale.csv",
-     NOT_RUN, "the C13 search at the reference's scale; c13_winner reads it"),
+     "not run whole; at most 16 min projected (a base-64 trial, the space's widest, in "
+     f"37.3 s on an {CARD}; PERF.md §6)",
+     "the C13 search at the reference's scale; c13_winner reads it"),
     ("gan_search", "runs/torch_gan_trial_results.csv", "runs/torch_gan_trial_results.csv",
      PKG + "run_gan_search --trials 8 --epochs 5",
      f"0.5 min (the study's 32 s on an {CARD}; PERF.md §6)", "the C16 GAN search"),
