@@ -111,6 +111,23 @@ def test_batched_sampler_matches_sequential(sampler):
     np.testing.assert_allclose(a.numpy(), b.numpy(), **SAMPLER_TOL)
 
 
+def test_sampler_at_the_gap_grids_timesteps_matches_jax(sampler):
+    """The sampler at each ``--timesteps`` of the diffusion-gap grid
+    (``run_diffusion_gap.CONFIGS``: gap-T10's T = 10), beside the T = 3
+    above."""
+    from vub_image_denoising_tpu_torch.scripts.run_diffusion_gap import CONFIGS
+
+    x = sampler["x"][:1]
+    for steps in sorted({int(knobs[knobs.index("--timesteps") + 1]) for _, knobs in CONFIGS
+                         if "--timesteps" in knobs}):
+        want = run_jax(lambda v: JDiffusion(timesteps=steps).improved_sampling(
+            JRDUNetT(4).apply, v, x), jax.tree_util.tree_map(jnp.asarray, sampler["params"]))
+        with torch.no_grad():
+            got = InterpolationDiffusion(steps).improved_sampling(sampler["model"], nchw(x))
+        np.testing.assert_allclose(nhwc(got), np.asarray(want), err_msg=f"T = {steps}",
+                                   **SAMPLER_TOL)
+
+
 def test_improved_sampling_reference_math():
     """The update rule against a literal loop of the reference with an affine 'net'."""
     w, steps = 0.7, 5

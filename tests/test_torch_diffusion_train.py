@@ -109,6 +109,66 @@ def test_diffusion_step_trajectory_matches_jax(jax_trajectories, dist, monkeypat
     np.testing.assert_allclose(params["b"].detach().numpy(), ref[dist]["params"]["b"], rtol=2e-4)
 
 
+def grid_loss_mixes():
+    """The ``--loss-weights`` values of the diffusion-gap grid
+    (``run_diffusion_gap.CONFIGS``) other than the default above."""
+    from vub_image_denoising_tpu_torch.scripts.run_diffusion_gap import CONFIGS
+
+    mixes = {knobs[knobs.index("--loss-weights") + 1] for _, knobs in CONFIGS
+             if "--loss-weights" in knobs}
+    return sorted(tuple(float(v) for v in mix.split(",")) for mix in mixes)
+
+
+@pytest.fixture(scope="module")
+def jax_grid_trajectories(jax_trajectories):
+    """The uniform-t trajectory of ``jax_trajectories`` under each of the
+    grid's loss mixes, in one compiled function."""
+    init, noisy, clean, _ = jax_trajectories
+    keys = jax.random.split(jax.random.PRNGKey(0), STEPS)
+    tx = js.make_optimizer("adamw", 1e-4, 1e-4, "step", steps_per_epoch=1, clip_norm=0.1)
+
+    def trajectory(state, weights):
+        step = jd.make_diffusion_train_step(jax_unet, JDiffusion(T), tx, accumulation_steps=ACC,
+                                            loss_weights=weights)
+        return jax.lax.scan(lambda st, xs: step(st, *xs), state, (keys, noisy, clean))
+
+    state = JTrainState.create(jax.tree_util.tree_map(jnp.asarray, init), tx)
+    with jax.default_matmul_precision("highest"):
+        run = jax.jit(lambda s: [trajectory(s, w) for w in grid_loss_mixes()]).lower(
+            state).compile(compiler_options={"xla_backend_optimization_level": 0})
+    return {w: (np.asarray(losses), jax.tree_util.tree_map(np.asarray, final.params))
+            for w, (final, losses) in zip(grid_loss_mixes(), run(state))}
+
+
+@pytest.mark.parametrize("weights", grid_loss_mixes(), ids=str)
+def test_diffusion_step_with_the_grids_loss_mixes_matches_jax(jax_trajectories,
+                                                              jax_grid_trajectories, weights,
+                                                              monkeypatch):
+    """The step under each loss mix the gap grid trains (gap-mse's MSE term,
+    gap-ssim's SSIM term), from JAX's timestep draws, as above."""
+    init, noisy, clean, ref = jax_trajectories
+    draws = iter(ref["uniform"]["draws"].reshape(STEPS * ACC, N // ACC).copy())
+    monkeypatch.setattr(pd, "sample_timesteps", lambda generator, n, timesteps, distribution: (
+        torch.from_numpy(next(draws))))
+    params = {"w": torch.from_numpy(init["w"].transpose(3, 2, 0, 1).copy()).requires_grad_(),
+              "b": torch.from_numpy(init["b"].copy()).requires_grad_()}
+    state = TrainState.create(params, make_optimizer("adamw", 1e-4, 1e-4, "step",
+                                                     steps_per_epoch=1, clip_norm=0.1))
+    step = pd.make_diffusion_train_step(port_unet, InterpolationDiffusion(T), ACC,
+                                        loss_weights=weights)
+    losses = []
+    for nz, cl in zip(noisy, clean):
+        state, loss = step(state, None, torch.from_numpy(nz).permute(0, 3, 1, 2),
+                           torch.from_numpy(cl).permute(0, 3, 1, 2))
+        losses.append(loss.item())
+    assert state.step == STEPS
+    want_losses, want = jax_grid_trajectories[weights]
+    np.testing.assert_allclose(losses, want_losses, rtol=2e-4)
+    np.testing.assert_allclose(params["w"].detach().numpy(), want["w"].transpose(3, 2, 0, 1),
+                               rtol=2e-4)
+    np.testing.assert_allclose(params["b"].detach().numpy(), want["b"], rtol=2e-4)
+
+
 def test_sample_timesteps_ranges_and_seeding():
     """Uniform: integers in [0, T]; biased: Beta(2, 1)*T in [0, T] (mean 2T/3,
     second moment T^2/2); the same seed gives the same draws."""

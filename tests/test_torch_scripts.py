@@ -380,6 +380,50 @@ def test_gap_stage3_budget_fits_one_chip_call():
     assert stage2.fit_epochs_to_budget(bf64, 200, jax_budget) == 200
 
 
+# a row's fields that train_accuracy's flags of the same name set
+ROW_KNOBS = ("lr", "loss_weights", "t_dist", "timesteps", "base_filters", "epochs")
+
+
+def test_committed_gap_rows_are_the_manifests_runs(capsys):
+    """``runs/torch_accuracy_log.jsonl`` holds the manifest's ``gap_stage1``
+    grid as the card trained it (``peak_gib`` is written only there): one
+    complete row per ``CONFIGS`` tag, each with its grid command's knobs.
+    The port's composition over those rows equals the JAX script's, and so
+    does the command that the manifest's ``gap_stage3`` entry runs over
+    them, its epochs ``fit_epochs_to_budget(..., 200, CALL_BUDGET_S)``."""
+    from vub_image_denoising_tpu_torch.scripts import regen_artifacts as ra
+    from vub_image_denoising_tpu_torch.scripts import run_diffusion_gap as gap
+    from vub_image_denoising_tpu_torch.scripts import run_diffusion_gap_stage2 as stage2
+
+    jax_stage2 = load_jax_script("run_diffusion_gap_stage2")
+    log = os.path.join(REPO, stage2.LOG)
+    with open(log) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    gaps = stage2.load_stage1(log)
+    parser = train_accuracy.build_arg_parser()
+    assert sorted(r["tag"] for r in gaps) == sorted(tag for tag, _ in gap.CONFIGS)
+    for tag, argv in gap.grid():
+        (row,) = [r for r in rows if r.get("tag") == tag]
+        args = parser.parse_args(argv)
+        assert {k: row[k] for k in ROW_KNOBS} == {k: getattr(args, k) for k in ROW_KNOBS}, tag
+        assert row["steps"] == 640 and "peak_gib" in row, tag
+    assert stage2.compose_winner(gaps) == jax_stage2.compose_winner(gaps)
+
+    words = shlex.split(dict((e[0], e[3]) for e in ra.MANIFEST)["gap_stage3"])
+    capsys.readouterr()
+    assert stage2.main([*words[3:], "--log", log, "--dry-run"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    winner = json.loads(next(ln for ln in out if ln.startswith("stage-1 winner:")).split(":", 1)[1])
+    port_cmd = next(ln for ln in out if ln.startswith("running:")).split()[1:]
+    args = parser.parse_args(port_cmd[3:])
+    assert args.epochs == stage2.fit_epochs_to_budget(winner, 200, ra.CALL_BUDGET_S)
+    assert jax_stage2.main(["--log", log, "--dry-run", "--budget-s", str(ra.CALL_BUDGET_S),
+                            "--tag", "gap-stage3"]) == 0
+    jax_cmd = next(ln for ln in capsys.readouterr().out.splitlines()
+                   if ln.startswith("running:")).split()[1:]
+    assert knob_flags(port_cmd)[:-1] == knob_flags(jax_cmd)[:-1]  # all but the directory
+
+
 def test_job_dispatches_its_three_tasks(monkeypatch, capsys):
     from vub_image_denoising_tpu_torch.scripts import job
     from vub_image_denoising_tpu_torch.search import hyperparams

@@ -84,9 +84,10 @@ MANIFEST = [
     ("gap_stage1", "runs/torch_gap_*",
      "runs/torch_gap_ssim_biased/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
      PKG + "run_diffusion_gap",
-     "not run; about 65 min projected, so two calls through --only (640 steps a "
-     f"configuration at the 0.54 s a step of 3200 diffusion steps in 1739.1 s on an {CARD}, "
-     "gap-bf64 about 4x; PERF.md §5)",
+     "66.3 min of command in two calls through --only (2203.1 and 1777.5 s on an "
+     f"{CARD}, the build and the 2048 + 64-image cache once a call): 640 steps a "
+     "configuration, 0.5375 s a step at base 32, gap-bf64 1.156 s, 800.6 s of training; "
+     "PERF.md §6",
      "the diffusion-gap grid: eight rows gap-* of runs/torch_accuracy_log.jsonl"),
     # the composed configuration as the repo's record trained it (SSIM 0.3 and
     # the biased t over the then-partial stage-1 grid), pinned: re-composing
@@ -105,8 +106,12 @@ MANIFEST = [
      "runs/torch_gap_stage3/diffusion_RDUNet_model_checkpointed_epoch_*.pth",
      PKG + "run_diffusion_gap_stage2 --tag gap-stage3 --ckpt-dir runs/torch_gap_stage3 "
      "--budget-s " + str(CALL_BUDGET_S),
-     f"not run; capped at {CALL_BUDGET_S / 60:.0f} min by its budget, after gap_stage1",
-     "the diffusion-gap stage 3: the winner re-composed over the whole gap_stage1 grid"),
+     "not run; about 34 min of training projected at 100 epochs (gap-bf64's 1.156 s a step "
+     f"with the SSIM term's 6.4% on an {CARD}) once gap-base is re-run: over the committed "
+     "grid, whose gap-base row carries the kernels' build, it would run 200 epochs uncapped, "
+     "about 67 min (ROADMAP.md queue 1)",
+     "the diffusion-gap stage 3: the winner re-composed over the whole gap_stage1 grid, "
+     "lr 4e-4, biased t, SSIM 0.3 and base 64 at T = 20"),
     ("rca_promoted", "runs/torch_accuracy_ckpt_rca_promoted",
      "runs/torch_accuracy_ckpt_rca_promoted/checkpoint_epoch_*.pth",
      PKG + "train_gan_accuracy --algo rca --lam-feat 0.05 --lam-content 100 "

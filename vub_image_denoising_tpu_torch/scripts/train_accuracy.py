@@ -36,6 +36,7 @@ import signal
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -381,6 +382,17 @@ def main(argv=None):
     sig_desc = sigma_list if sigma_list is not None else sigma
     print(f"noisy-input PSNR @ sigma={sig_desc}: {psnr_noisy:.2f} dB", flush=True)
 
+    if device.type == "cuda":
+        from ..ops import fused_block
+
+        # kernel 1's libraries build once per machine and later runs load
+        # them from disk: build them before the clock starts, so that the
+        # first run of a grid does not carry the build in its train_seconds
+        with ThreadPoolExecutor(2) as pool:
+            for fut in [pool.submit(fused_block._tc_library),
+                        pool.submit(fused_block._wide_library)]:
+                fut.result()
+
     best = -1.0
     t_train0 = time.time()
     end_epoch = start_epoch + args.epochs
@@ -455,6 +467,11 @@ def main(argv=None):
             result["scheduler"] = args.scheduler
     if start_epoch:
         result["resumed_from_epoch"] = start_epoch
+    if device.type == "cuda":
+        import torch
+
+        # the run's peak, its evaluations' sampler calls included
+        result["peak_gib"] = round(torch.cuda.max_memory_allocated(device) / 2 ** 30, 3)
     if sigma_list is not None:
         result["sigma_list"] = sigma_list
         result["psnr_by_sigma_db"] = {
